@@ -4,25 +4,40 @@
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout, on a machine whose torch sees a CUDA
-card.  It drives the port's main path -- the HTTP server answering PQL
-Count trees over a 256-shard x 2^20-column index -- and holds every
-hand-written kernel against its plain PyTorch version on the card:
+card.  It drives the port's main paths -- the HTTP server answering PQL
+Count trees over a 256-shard x 2^20-column index, alone and concurrently
+through the coalescer -- and holds every hand-written kernel against its
+plain PyTorch version on the card:
 
 1. header: the card's name and power limit (nvidia-smi);
-2. build: the K2 source with nvcc for sm_90a;
+2. build: the K2 and K3 sources, one nvcc each for sm_90a, side by side;
 3. K2 check: ``gathered_count_and`` against its plain version on seeded
    pools (zero rows, indices past either end, P=1, a P that is not a
    power of two, and P=4096 over two 8192-row pools), bit-exact;
-4. main path: a ``cuda`` Server on a temporary directory; rows 1-3 at
-   8 % fill and row 4 at 50 % fill imported through
-   ``POST .../import-roaring/{shard}``; each query once cold and
-   ``WARM_RUNS`` times warm over HTTP (and the K2 query as often through
-   the API in the server's process), every answer equal to a numpy
-   ``bitwise_count`` oracle; a Set and a recount.  Launch counts are
-   zeroed just before and read just after;
-5. K2 timing on the main path's own pools and gather indices (CUDA
-   events around each launch, L2 flushed before each), beside its plain
-   version and its bound.
+4. K3 check: ``vm_counts`` against its plain version on seeded pools and
+   random SSA programs over all five opcodes (B=1 D=1; (L, T) = (4, 4)
+   and the caps (16, 32); pad rows and pad slots on the zero row; an
+   8192-row pool), bit-exact;
+5. the K2 path: a ``cuda`` Server (coalescer on by default) on a
+   temporary directory; field f's rows 1-3 at 8 % fill and row 4 at 50 %
+   imported through ``POST .../import-roaring/{shard}``; each query once
+   cold and ``WARM_RUNS`` times warm over HTTP with ``?nocoalesce=true``
+   (and the K2 query as often through the API in the server's process),
+   every answer equal to a numpy ``bitwise_count`` oracle; a Set and a
+   recount.  Launch counts are zeroed just before and read just after;
+6. the lone query under the coalescer: the same warm Count(Intersect)
+   ``WARM_RUNS`` times without the flag, each one K3 launch;
+7. the coalesced path: field g's rows 1-3 at 8 % fill; 16 structurally
+   distinct 2- and 3-leaf Count trees fired by 16 barrier-started HTTP
+   client threads for ``ROUNDS`` rounds, every answer equal to the
+   oracle, no VM fallback, K3 launches equal to ``vm.executions``
+   (counts zeroed just before, read just after), and the flushes'
+   distinct leaf sets and megapool builds; the card's busy share over
+   more such rounds (torch.profiler); then rounds that mix in row 4
+   (dense), which the VM declines and the dense tape route serves;
+8. K3 timing on the inputs of one real flush of step 7, and K2 timing on
+   step 5's pools (CUDA events around each launch, L2 flushed before
+   each), beside their plain versions and their bounds.
 
 Latencies are host-clock times; each is reported as the median with its
 10th and 90th percentiles and the sample count.
@@ -36,6 +51,7 @@ directory that holds this script and nothing else of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -43,6 +59,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -57,17 +74,47 @@ import numpy as np  # noqa: E402
 #: sheets; the first match wins.  Another card has no bound here.
 HBM_RATES = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
              ("H100", 3.35e12))
-#: SM cycles per 32-bit word pair that K2 spends on its integer work:
-#: one AND and one add at 64 per SM per cycle, one popcount at 16
-#: (CUDA C++ Programming Guide, "Arithmetic Instructions" throughput
-#: table, compute capability 9.0).
-K2_CYCLES_PER_WORD = 1 / 64 + 1 / 16 + 1 / 64
+#: SM cycles per 32-bit word that the kernels spend on integer work: a
+#: bitwise op and an add at 64 per SM per cycle, a popcount at 16 (CUDA
+#: C++ Programming Guide, "Arithmetic Instructions" throughput table,
+#: compute capability 9.0).
+BITWISE_CYCLES = 1 / 64
+POPC_CYCLES = 1 / 16
+K2_CYCLES_PER_WORD = BITWISE_CYCLES + POPC_CYCLES + BITWISE_CYCLES
 
-FILL_SPARSE = 5243  # of 65536: rows 1-3 at ~8 % fill
+FILL_SPARSE = 5243  # of 65536: rows at ~8 % fill
 TIMED_LAUNCHES = 200
 PLAIN_LAUNCHES = 50
+K3_PLAIN_LAUNCHES = 10
 WARM_RUNS = 300
+ROUNDS = 60
+MIXED_ROUNDS = 3
+PROFILED_ROUNDS = 10
 N_SHARDS = 256  # of 2^20 columns: the 268,435,456-column index
+
+_OPS = {"and": "Intersect", "or": "Union", "andnot": "Difference",
+        "xor": "Xor"}
+_COMBOS = (("and", "or"), ("and", "xor"), ("or", "and"), ("or", "andnot"),
+           ("andnot", "or"), ("andnot", "xor"), ("xor", "and"),
+           ("xor", "or"))
+
+
+def _trees(a, b, c, d, e) -> list:
+    """16 structurally distinct Count trees over five leaves, all in the
+    (4, 4) tape size class (tests/test_vm.py SHAPES_16): 2-leaf and
+    3-leaf folds and nested pairs."""
+    return ([(op, a, b) for op in _OPS]
+            + [(op, c, d, e) for op in _OPS]
+            + [(o1, (o2, b, e), d) for o1, o2 in _COMBOS])
+
+
+#: the coalesced phase: every leaf sparse (f and g rows 1-3)
+TREES = _trees(("f", 1), ("g", 2), ("f", 2), ("g", 3), ("f", 3))
+#: the mixed rounds: half the trees read f's dense row 4
+MIXED = (_trees(("f", 4), ("g", 2), ("f", 2), ("g", 3), ("f", 3))[:4]
+         + [(o1, (o2, ("g", 1), ("f", 4)), ("g", 2))
+            for o1, o2 in _COMBOS[:4]]
+         + TREES[4:12])
 
 
 class SmokeFailure(RuntimeError):
@@ -145,14 +192,32 @@ def phase_header(torch) -> dict:
     return {"kind": kind, "hbm_rate": hbm, "sm_cycles": sms * clk_mhz * 1e6}
 
 
+KERNEL_SOURCES = ("gathered_count_and", "vm_counts")
+
+
 def phase_build(nvcc_build) -> None:
+    """One nvcc per source, all started together."""
     t0 = time.perf_counter()
-    nvcc_build.load("gathered_count_and")
-    log(f"build: gathered_count_and in {time.perf_counter() - t0:.1f} s")
-    for ln in nvcc_build.build_logs.get("gathered_count_and",
-                                        "").splitlines():
-        if "registers" in ln or "spill" in ln:
-            log(f"  {ln.strip()}")
+    errs: dict = {}
+
+    def build(name):
+        try:
+            nvcc_build.load(name)
+        except Exception as e:  # noqa: BLE001 -- reported below
+            errs[name] = e
+
+    ts = [threading.Thread(target=build, args=(n,)) for n in KERNEL_SOURCES]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    check(not errs, f"build failed: {errs}")
+    log(f"build: {', '.join(KERNEL_SOURCES)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in KERNEL_SOURCES:
+        for ln in nvcc_build.build_logs.get(name, "").splitlines():
+            if "registers" in ln or "spill" in ln:
+                log(f"  {name}: {ln.strip()}")
 
 
 def k2_cases(rng):
@@ -195,6 +260,53 @@ def phase_k2_check(torch, ck, bm, dev, seed: int) -> int:
     return worst
 
 
+def k3_case(rng, label, rows, slots, tape_len, n_q, domain, live_q=None):
+    """(label, pool, prog, gidx): random SSA programs over all five
+    opcodes; queries past ``live_q`` are pad rows (all COPY of slot 0 on
+    the zero row), and each live query's last slot is a pad slot."""
+    pool = rng.integers(0, 2 ** 32, size=(rows, 2048), dtype=np.uint32)
+    zero = rows - 1
+    pool[zero] = 0
+    pool[0] = 0xFFFFFFFF
+    prog = np.zeros((n_q, tape_len, 3), dtype=np.int32)
+    for q in range(n_q):
+        for t in range(tape_len):
+            prog[q, t] = (rng.integers(5), rng.integers(slots + t),
+                          rng.integers(slots + t))
+    gidx = rng.integers(0, rows, size=(slots, n_q, domain)).astype(np.int32)
+    if live_q is not None:
+        prog[live_q:] = (4, 0, 0)
+        gidx[:, live_q:] = zero
+        gidx[slots - 1] = zero
+        gidx[:, :, domain // 2:] = zero  # a padded domain tail
+    return label, pool, prog, gidx
+
+
+def phase_k3_check(torch, ck, bm, dev, seed: int) -> int:
+    """K3 against its plain version on the card; returns max |err|."""
+    rng = np.random.default_rng(seed + 3)
+    cases = [k3_case(rng, "b1d1", 3, 1, 1, 1, 1),
+             k3_case(rng, "l4t4", 64, 4, 4, 4, 64),
+             k3_case(rng, "caps", 96, 16, 32, 2, 32),
+             k3_case(rng, "pads", 40, 4, 4, 8, 16, live_q=5),
+             k3_case(rng, "rows8192", 8192, 4, 4, 4, 4096)]
+    worst = 0
+    for label, pool, prog, gidx in cases:
+        tpool = bm.to_tensor(pool, dev)
+        tprog, tgidx = torch.from_numpy(prog), torch.from_numpy(gidx)
+        got = ck.vm_counts(tpool, tprog, tgidx)
+        torch.cuda.synchronize()
+        want = ck.vm_counts_plain(tpool, tprog, tgidx)
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        worst = max(worst, err)
+        log(f"K3 check {label}: pool {pool.shape[0]} rows, B={prog.shape[0]} "
+            f"T={prog.shape[1]} L={gidx.shape[0]} D={gidx.shape[2]}, "
+            f"max_abs_err {err}")
+        check(err == 0 and torch.equal(got, want),
+              f"K3 differs from its plain version ({label})")
+    return worst
+
+
 class Http:
     def __init__(self, uri: str):
         self.uri = uri
@@ -210,29 +322,32 @@ class Http:
         except urllib.error.HTTPError as e:
             return e.code, e.read()
 
-    def query(self, pql: str) -> tuple[list, float]:
+    def query(self, pql: str, flags: str = "") -> tuple[list, float]:
         t0 = time.perf_counter()
-        st, body = self.post("/index/i/query", pql.encode(), "text/plain")
+        st, body = self.post("/index/i/query" + flags, pql.encode(),
+                             "text/plain")
         ms = (time.perf_counter() - t0) * 1e3
         check(st == 200, f"{pql} -> HTTP {st}: {body[:300]!r}")
         return json.loads(body)["results"], ms
 
 
+def sparse_rows(rng, n_shards: int, words: int) -> np.ndarray:
+    m = np.empty((n_shards, words), dtype=np.uint32)
+    for s in range(n_shards):
+        bits = rng.integers(0, 1 << 16, size=words * 32,
+                            dtype=np.uint16) < FILL_SPARSE
+        m[s] = np.packbits(bits, bitorder="little").view(np.uint32)
+    return m
+
+
 def make_rows(n_shards: int, words: int, seed: int) -> dict:
-    """Row id -> uint32[n_shards, words]: rows 1-3 at ~8 % fill, row 4
-    at ~50 %."""
+    """Field -> row id -> uint32[n_shards, words]: rows 1-3 of f and g at
+    ~8 % fill, row 4 of f at ~50 %."""
     rng = np.random.default_rng(seed)
-    rows = {}
-    for r in (1, 2, 3):
-        m = np.empty((n_shards, words), dtype=np.uint32)
-        for s in range(n_shards):
-            bits = rng.integers(0, 1 << 16, size=words * 32,
-                                dtype=np.uint16) < FILL_SPARSE
-            m[s] = np.packbits(bits, bitorder="little").view(np.uint32)
-        rows[r] = m
-    rows[4] = rng.integers(0, 2 ** 32, size=(n_shards, words),
-                           dtype=np.uint32)
-    return rows
+    f = {r: sparse_rows(rng, n_shards, words) for r in (1, 2, 3)}
+    f[4] = rng.integers(0, 2 ** 32, size=(n_shards, words), dtype=np.uint32)
+    g = {r: sparse_rows(rng, n_shards, words) for r in (1, 2, 3)}
+    return {"f": f, "g": g}
 
 
 def roaring_payload(roaring, rows: dict, shard: int, cpr: int) -> bytes:
@@ -246,152 +361,409 @@ def roaring_payload(roaring, rows: dict, shard: int, cpr: int) -> bytes:
     return roaring.encode(np.concatenate(keys), np.concatenate(blocks))
 
 
-def oracle_count(op: str, rows: dict, ids: tuple) -> int:
-    acc = rows[ids[0]]
-    for r in ids[1:]:
-        if op == "and":
-            acc = acc & rows[r]
-        elif op == "or":
-            acc = acc | rows[r]
-        else:  # andnot
-            acc = acc & ~rows[r]
-    return int(np.bitwise_count(acc).sum(dtype=np.int64))
-
-
-def phase_main_path(torch, ck, bm, containers, Server, roaring,
-                    n_shards: int, seed: int) -> dict:
-    """The server on cuda answers the Count routes; returns the
-    measurements and, in ``probe``, the K2 inputs of the main path."""
-    from pilosa_tpu_torch.pql import parse
-    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
-
-    words = SHARD_WIDTH // 32
-    cpr = SHARD_WIDTH // roaring.CONTAINER_BITS
+def import_field(http: Http, roaring, field: str, rows: dict, n_shards: int,
+                 cpr: int) -> None:
+    check(http.post(f"/index/i/field/{field}", b"{}")[0] == 200,
+          f"create field {field}")
     t0 = time.perf_counter()
-    rows = make_rows(n_shards, words, seed)
-    fills = {r: float(np.bitwise_count(m).sum(dtype=np.int64))
-             / (n_shards * SHARD_WIDTH) for r, m in rows.items()}
-    log(f"data: {n_shards} shards x {SHARD_WIDTH} columns "
-        f"({n_shards * SHARD_WIDTH} columns), fills "
-        + ", ".join(f"row {r} {f:.4f}" for r, f in fills.items())
-        + f", made in {time.perf_counter() - t0:.1f} s")
+    sent = 0
+    for s in range(n_shards):
+        blob = roaring_payload(roaring, rows, s, cpr)
+        sent += len(blob)
+        st, body = http.post(f"/index/i/field/{field}/import-roaring/{s}",
+                             blob, "application/octet-stream")
+        check(st == 200, f"import-roaring {field} shard {s}: HTTP {st} "
+                         f"{body!r}")
+    log(f"import: field {field}, {n_shards} roaring payloads, {sent} bytes, "
+        f"in {time.perf_counter() - t0:.1f} s")
 
-    tmp = tempfile.mkdtemp(prefix="pilosa_torch_smoke_")
-    srv = Server(tmp, port=0)  # the default device: cuda
-    out: dict = {}
-    try:
-        srv.open()
-        check(srv.device.type == "cuda", f"server runs on {srv.device}")
-        http = Http(srv.uri)
-        check(http.post("/index/i", b'{"options": {"trackExistence": '
-                                    b'true}}')[0] == 200, "create index")
-        check(http.post("/index/i/field/f", b"{}")[0] == 200,
-              "create field")
+
+def tree_pql(tree) -> str:
+    if isinstance(tree[0], str) and tree[0] in _OPS:
+        return f"{_OPS[tree[0]]}({', '.join(tree_pql(c) for c in tree[1:])})"
+    return f"Row({tree[0]}={tree[1]})"
+
+
+def tree_words(tree, data: dict) -> np.ndarray:
+    if tree[0] not in _OPS:
+        return data[tree[0]][tree[1]]
+    acc = tree_words(tree[1], data)
+    for c in tree[2:]:
+        w = tree_words(c, data)
+        acc = {"and": acc & w, "or": acc | w, "xor": acc ^ w,
+               "andnot": acc & ~w}[tree[0]]
+    return acc
+
+
+def oracle(tree, data: dict) -> int:
+    return int(np.bitwise_count(tree_words(tree, data)).sum(dtype=np.int64))
+
+
+def phase_k2_path(torch, ck, bm, containers, srv, http: Http, data: dict
+                  ) -> dict:
+    """The Count routes of the K2 slice, each request with
+    ``?nocoalesce=true``; returns the measurements and, in ``probe``, the
+    K2 inputs of this path."""
+    from pilosa_tpu_torch.pql import parse
+
+    rows = data["f"]
+    queries = [
+        ("intersect_k2", ("and", ("f", 1), ("f", 2)), "k2"),
+        ("union3_gathered", ("or", ("f", 1), ("f", 2), ("f", 3)),
+         "gathered"),
+        ("difference_gathered", ("andnot", ("f", 1), ("f", 3)), "gathered"),
+        ("intersect_dense", ("and", ("f", 1), ("f", 4)), "dense"),
+    ]
+    out: dict = {"queries": {}}
+    nocoal = "?nocoalesce=true"
+
+    def run(label, tree, route):
+        """The query once cold, then WARM_RUNS times warm."""
+        pql = f"Count({tree_pql(tree)})"
+        want = oracle(tree, data)
+        k0 = ck.launch_counts()
+        c0 = containers.counters()
+        lat = []
+        for _ in range(1 + WARM_RUNS):
+            res, ms = http.query(pql, nocoal)
+            lat.append(ms)
+            check(res == [want], f"{pql}: got {res}, oracle {want}")
+        k1 = ck.launch_counts()
+        k = k1["gathered_count_and"] - k0["gathered_count_and"]
+        check(k1["vm_counts"] == k0["vm_counts"],
+              f"{pql}: K3 launched under ?nocoalesce=true")
+        c1 = containers.counters()
+        served = c1["container.queries"] - c0["container.queries"]
+        if route == "k2":
+            check(k == len(lat), f"{pql}: K2 launched {k} times")
+        else:
+            check(k == 0, f"{pql}: K2 launched on the {route} route")
+        if route == "dense":
+            check(served == 0, f"{pql}: served compressed")
+        else:
+            check(served == len(lat), f"{pql}: {served} compressed")
+        warm = spread(lat[1:])
+        out["queries"][label] = {
+            "pql": pql, "count": want, "route": route,
+            "first_ms": lat[0], "warm_ms": warm}
+        log(f"{label}: {pql} = {want} ({route}); first "
+            f"{lat[0]:.2f} ms, warm over HTTP {fmt(warm)}")
+
+    # ---- the K2 path: counts zeroed just before, read just after
+    ck.reset_launch_counts()
+    for q in queries:
+        run(*q)
+    pql0 = out["queries"]["intersect_k2"]["pql"]
+    want0 = out["queries"]["intersect_k2"]["count"]
+    # the same Count through the API in this thread, under the
+    # thread-local launch log
+    with bm.dispatch_counter() as dc:
+        res = srv.api.query("i", pql0, coalesce=False)
+    check(res == [want0], f"API {pql0} -> {res}")
+    check(dc.launches == ["gathered_count_and"],
+          f"API Count(Intersect) launches {dc.launches}")
+    # the same, timed without HTTP: what the server adds on top
+    api_lat = []
+    for _ in range(WARM_RUNS):
         t0 = time.perf_counter()
-        sent = 0
-        for s in range(n_shards):
-            blob = roaring_payload(roaring, rows, s, cpr)
-            sent += len(blob)
-            st, body = http.post(f"/index/i/field/f/import-roaring/{s}",
-                                 blob, "application/octet-stream")
-            check(st == 200, f"import-roaring shard {s}: HTTP {st} {body!r}")
-        log(f"import: {n_shards} roaring payloads, {sent} bytes, in "
-            f"{time.perf_counter() - t0:.1f} s")
+        res = srv.api.query("i", pql0, coalesce=False)
+        api_lat.append((time.perf_counter() - t0) * 1e3)
+        check(res == [want0], f"API {pql0} -> {res}")
+    api = out["queries"]["intersect_k2"]["api_ms"] = spread(api_lat)
+    log(f"intersect_k2 through the API in the server's process: {fmt(api)}")
+    # a write, then the recount sees it
+    cand = rows[2] & ~rows[1]
+    flat = np.flatnonzero(cand.reshape(-1))
+    check(len(flat) > 0, "no column to set")
+    w = int(flat[0])
+    bit = int(np.flatnonzero(np.unpackbits(
+        cand.reshape(-1)[w:w + 1].view(np.uint8), bitorder="little"))[0])
+    col = w * 32 + bit  # row-major over shards: shard * width + off
+    res, _ms = http.query(f"Set({col}, f=1)")
+    check(res == [True], f"Set({col}, f=1) -> {res}")
+    rows[1].reshape(-1)[w] |= np.uint32(1) << np.uint32(bit)
+    run("intersect_k2_after_set", *queries[0][1:])
+    check(out["queries"]["intersect_k2_after_set"]["count"] == want0 + 1,
+          "the recount did not see the Set")
+    out["launches"] = ck.launch_counts()
+    # ---- end of the K2 path
+    log(f"K2 path launches: {out['launches']}")
+    check(out["launches"]["gathered_count_and"] > 0,
+          "K2 was not launched on its path")
+    check(out["launches"]["vm_counts"] == 0, "K3 was launched on K2's path")
 
-        queries = [
-            ("intersect_k2", "Count(Intersect(Row(f=1), Row(f=2)))",
-             ("and", (1, 2)), "k2"),
-            ("union3_gathered", "Count(Union(Row(f=1), Row(f=2), Row(f=3)))",
-             ("or", (1, 2, 3)), "gathered"),
-            ("difference_gathered", "Count(Difference(Row(f=1), Row(f=3)))",
-             ("andnot", (1, 3)), "gathered"),
-            ("intersect_dense", "Count(Intersect(Row(f=1), Row(f=4)))",
-             ("and", (1, 4)), "dense"),
-        ]
+    # K2's own inputs on this path, for the timing phase
+    idx = srv.holder.index("i")
+    shards = tuple(sorted(idx.available_shards()))
+    plan = containers.plan_fused(
+        idx, parse("Intersect(Row(f=1), Row(f=2))").calls[0], shards)
+    check(plan is not None, "Count(Intersect) did not plan compressed")
+    dev_idxs = plan._stage()[4]
+    out["probe"] = (plan.leaves[0].pool, dev_idxs[0],
+                    plan.leaves[1].pool, dev_idxs[1])
+    return out
 
-        def run(label, pql, oracle, route):
-            """The query once cold, then WARM_RUNS times warm."""
-            want = oracle_count(oracle[0], rows, oracle[1])
-            k0 = ck.launch_counts()["gathered_count_and"]
-            c0 = containers.counters()
-            lat = []
-            for _ in range(1 + WARM_RUNS):
-                res, ms = http.query(pql)
-                lat.append(ms)
-                check(res == [want], f"{pql}: got {res}, oracle {want}")
-            k = ck.launch_counts()["gathered_count_and"] - k0
-            c1 = containers.counters()
-            served = c1["container.queries"] - c0["container.queries"]
-            if route == "k2":
-                check(k == len(lat), f"{pql}: K2 launched {k} times")
-            else:
-                check(k == 0, f"{pql}: K2 launched on the {route} route")
-            if route == "dense":
-                check(served == 0, f"{pql}: served compressed")
-            else:
-                check(served == len(lat), f"{pql}: {served} compressed")
-            warm = spread(lat[1:])
-            out.setdefault("queries", {})[label] = {
-                "pql": pql, "count": want, "route": route,
-                "first_ms": lat[0], "warm_ms": warm}
-            log(f"{label}: {pql} = {want} ({route}); first "
-                f"{lat[0]:.2f} ms, warm over HTTP {fmt(warm)}")
 
-        # ---- the main path: counts zeroed just before, read just after
-        ck.reset_launch_counts()
-        for q in queries:
-            run(*q)
-        # the same Count through the API in this thread, under the
-        # thread-local launch log
-        with bm.dispatch_counter() as dc:
-            res = srv.api.query("i", queries[0][1])
-        check(res == [out["queries"]["intersect_k2"]["count"]],
-              f"API {queries[0][1]} -> {res}")
-        check(dc.launches == ["gathered_count_and"],
-              f"API Count(Intersect) launches {dc.launches}")
-        # the same, timed without HTTP: what the server adds on top
-        api_lat = []
-        for _ in range(WARM_RUNS):
-            t0 = time.perf_counter()
-            res = srv.api.query("i", queries[0][1])
-            api_lat.append((time.perf_counter() - t0) * 1e3)
-            check(res == [out["queries"]["intersect_k2"]["count"]],
-                  f"API {queries[0][1]} -> {res}")
-        api = out["queries"]["intersect_k2"]["api_ms"] = spread(api_lat)
-        log(f"intersect_k2 through the API in the server's process: "
-            f"{fmt(api)}")
-        # a write, then the recount sees it
-        cand = rows[2] & ~rows[1]
-        flat = np.flatnonzero(cand.reshape(-1))
-        check(len(flat) > 0, "no column to set")
-        w = int(flat[0])
-        bit = int(np.flatnonzero(np.unpackbits(
-            cand.reshape(-1)[w:w + 1].view(np.uint8), bitorder="little"))[0])
-        col = w * 32 + bit  # row-major over shards: shard * width + off
-        res, _ms = http.query(f"Set({col}, f=1)")
-        check(res == [True], f"Set({col}, f=1) -> {res}")
-        rows[1].reshape(-1)[w] |= np.uint32(1) << np.uint32(bit)
-        run("intersect_k2_after_set", queries[0][1], queries[0][2], "k2")
-        check(out["queries"]["intersect_k2_after_set"]["count"]
-              == out["queries"]["intersect_k2"]["count"] + 1,
-              "the recount did not see the Set")
-        out["launches"] = ck.launch_counts()
-        # ---- end of the main path
-        log(f"main path launches: {out['launches']}")
+def phase_lone(ck, tape, http: Http, data: dict) -> dict:
+    """The warm Count(Intersect) without the flag: each lone request
+    waits out the window, then runs as one K3 launch."""
+    tree = ("and", ("f", 1), ("f", 2))
+    pql = f"Count({tree_pql(tree)})"
+    want = oracle(tree, data)
+    http.query(pql)  # stage the VM directory once
+    ck.reset_launch_counts()
+    tape.reset_counters()
+    lat = []
+    for _ in range(WARM_RUNS):
+        res, ms = http.query(pql)
+        lat.append(ms)
+        check(res == [want], f"{pql}: got {res}, oracle {want}")
+    k = ck.launch_counts()
+    vm = tape.counters()
+    check(k["vm_counts"] == WARM_RUNS == vm["vm.executions"],
+          f"lone queries: K3 {k['vm_counts']}, vm.executions "
+          f"{vm['vm.executions']}, requests {WARM_RUNS}")
+    check(k["gathered_count_and"] == 0, "K2 launched under the coalescer")
+    warm = spread(lat)
+    log(f"intersect_coalesced_lone: {pql} = {want} (K3, lone under the "
+        f"coalescer); warm over HTTP {fmt(warm)}")
+    return {"pql": pql, "count": want, "route": "k3_lone", "warm_ms": warm,
+            "launches": k["vm_counts"]}
 
-        # K2's own inputs on the main path, for the timing phase
-        idx = srv.holder.index("i")
-        shards = tuple(sorted(idx.available_shards()))
-        plan = containers.plan_fused(
-            idx, parse("Intersect(Row(f=1), Row(f=2))").calls[0], shards)
-        check(plan is not None, "Count(Intersect) did not plan compressed")
-        dev_idxs = plan._stage()[4]
-        out["probe"] = (plan.leaves[0].pool, dev_idxs[0],
-                        plan.leaves[1].pool, dev_idxs[1])
-        return out
+
+def fire_rounds(http: Http, trees: list, wants: list, rounds: int
+                ) -> tuple[list, float]:
+    """``rounds`` rounds of every tree, one barrier-started client thread
+    per tree; (per-request latencies in ms, wall seconds)."""
+    n = len(trees)
+    pqls = [f"Count({tree_pql(t)})" for t in trees]
+    bar = threading.Barrier(n)
+    lat: list = [[] for _ in range(n)]
+    errs: list = []
+
+    def client(i):
+        try:
+            for _ in range(rounds):
+                bar.wait(timeout=600)
+                res, ms = http.query(pqls[i])
+                lat[i].append(ms)
+                check(res == [wants[i]],
+                      f"{pqls[i]}: got {res}, oracle {wants[i]}")
+        except Exception as e:  # noqa: BLE001 -- reported below
+            errs.append(f"{type(e).__name__}: {e}")
+            bar.abort()
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in ts), "a client thread hung")
+    check(not errs, f"coalesced round failed: {errs[:3]}")
+    return [x for xs in lat for x in xs], wall
+
+
+@contextlib.contextmanager
+def megapool_log(containers):
+    """The leaf sets of the VM flushes inside the block (leaf uids) and
+    the number of megapools built for them: the memo's misses, each a
+    copy of the set's leaf pools on the card."""
+    seen: dict = {"sets": [], "builds": 0}
+    real_mp, real_build = containers.megapool, containers._megapool_plain
+
+    def mp(leaves):
+        seen["sets"].append(frozenset(leaf.uid for leaf in leaves))
+        return real_mp(leaves)
+
+    def build(order):
+        seen["builds"] += len(order) > 1  # one leaf is served uncopied
+        return real_build(order)
+
+    containers.megapool, containers._megapool_plain = mp, build
+    try:
+        yield seen
     finally:
-        srv.close()
-        shutil.rmtree(tmp, ignore_errors=True)
+        containers.megapool = real_mp
+        containers._megapool_plain = real_build
+
+
+def profile_rounds(http: Http, wants: list) -> dict:
+    """The card's busy share over ``PROFILED_ROUNDS`` coalesced rounds:
+    device time that torch.profiler's CUDA activity records, over the
+    rounds' wall time, and the device time by kernel.  Fails where the
+    profiler records no device time."""
+    import torch
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _lat, wall = fire_rounds(http, TREES, wants, PROFILED_ROUNDS)
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0))
+        if t > 0:
+            by_kernel[ev.key] = t / 1e3  # us -> ms
+    busy = sum(by_kernel.values())
+    check(busy > 0, "the profiler recorded no device time over the "
+                    "coalesced rounds")
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])
+    out = {"rounds": PROFILED_ROUNDS, "wall_ms": wall * 1e3,
+           "device_ms": busy, "busy_share": busy / (wall * 1e3),
+           "device_ms_by_kernel": top}
+    log(f"profiler: {PROFILED_ROUNDS} coalesced rounds in "
+        f"{wall * 1e3:.1f} ms, device busy {busy:.3f} ms "
+        f"({100 * out['busy_share']:.2f} %); by kernel (ms): {top}")
+    return out
+
+
+def phase_coalesced(ck, tape, containers, http: Http, roaring, data: dict,
+                    cpr: int, srv_max_prefetch: int) -> dict:
+    """16 distinct sparse trees from 16 concurrent clients, then rounds
+    mixed with the dense row; returns the measurements and, in
+    ``flush``, one VM flush's inputs."""
+    import_field(http, roaring, "g", data["g"], N_SHARDS, cpr)
+    wants = [oracle(t, data) for t in TREES]
+    for t, w in zip(TREES, wants):  # stage every leaf and directory once
+        res, _ms = http.query(f"Count({tree_pql(t)})")
+        check(res == [w], f"{tree_pql(t)}: got {res}, oracle {w}")
+    fire_rounds(http, TREES, wants, 1)
+
+    # ---- the coalesced path: counts zeroed just before, read just after
+    with megapool_log(containers) as mega:
+        ck.reset_launch_counts()
+        tape.reset_counters()
+        lat, wall = fire_rounds(http, TREES, wants, ROUNDS)
+        k = ck.launch_counts()
+        vm = tape.counters()
+    # ---- end of the coalesced path
+    n_q = len(TREES) * ROUNDS
+    check(vm["vm.queries"] == n_q, f"vm.queries {vm['vm.queries']} of {n_q}")
+    check(vm["vm.fallbacks"] == 0, f"vm.fallbacks {vm['vm.fallbacks']}")
+    check(vm["vm.executions"] > 0, "the VM never ran")
+    check(k["vm_counts"] == vm["vm.executions"],
+          f"K3 launched {k['vm_counts']} times for "
+          f"{vm['vm.executions']} VM executions")
+    check(k["gathered_count_and"] == 0, "K2 launched on the coalesced path")
+    sp = spread(lat)
+    out = {"queries": n_q, "rounds": ROUNDS, "vm_executions":
+           vm["vm.executions"], "k3_launches": k["vm_counts"],
+           "queries_per_launch": n_q / vm["vm.executions"],
+           "latency_ms": sp, "qps": n_q / wall,
+           "programs": tape.debug()["vm"]["programs"],
+           "vm_flushes": len(mega["sets"]),
+           "leaf_sets": len(set(mega["sets"])),
+           "megapool_builds": mega["builds"]}
+    log(f"coalesced: {len(TREES)} distinct trees x {ROUNDS} rounds from "
+        f"{len(TREES)} clients, every answer exact; vm.executions "
+        f"{vm['vm.executions']}, K3 launches {k['vm_counts']}, "
+        f"{out['queries_per_launch']:.2f} queries per launch, "
+        f"vm.fallbacks 0; per request {fmt(sp)}; {out['qps']:.1f} queries/s")
+    log(f"  {out['vm_flushes']} VM flushes over {out['leaf_sets']} distinct "
+        f"leaf sets; {out['megapool_builds']} megapools built (memo misses)")
+    widest = max(p["batch"] for p in out["programs"])
+    log(f"  VM program variants: {out['programs']}; the widest launch holds "
+        f"{widest} queries (max_prefetch {srv_max_prefetch} over "
+        f"{out['programs'][0]['slots']} slots x domain "
+        f"{out['programs'][0]['domain']})")
+
+    out["device"] = profile_rounds(http, wants)
+
+    # one more round, recording each VM flush's inputs for the timing
+    flushes: list = []
+    real = tape.execute_vm
+
+    def recording(batch, pool, zero_index, tape_len=None, slots=None,
+                  max_prefetch=None):
+        flushes.append((list(batch), pool, zero_index, tape_len, slots,
+                        max_prefetch))
+        return real(batch, pool, zero_index, tape_len, slots, max_prefetch)
+
+    tape.execute_vm = recording
+    try:
+        fire_rounds(http, TREES, wants, 1)
+    finally:
+        tape.execute_vm = real
+    # the calls that launched (the halving stops where a batch fits);
+    # the largest of them is timed
+    launched = [(batch, pool, zero, tb, lb)
+                for batch, pool, zero, tb, lb, mp in flushes
+                if len(batch) == 1 or lb * (1 << (len(batch) - 1)
+                                            .bit_length())
+                * len(batch[0][1][0]) <= mp]
+    if launched:
+        out["flush"] = max(launched, key=lambda f: len(f[0]))
+
+    # rounds mixed with the dense row 4: the VM declines those trees
+    mwants = [oracle(t, data) for t in MIXED]
+    for t, w in zip(MIXED, mwants):  # build the dense stacks once
+        res, _ms = http.query(f"Count({tree_pql(t)})", "?nocoalesce=true")
+        check(res == [w], f"{tree_pql(t)}: got {res}, oracle {w}")
+    tape.reset_counters()
+    fire_rounds(http, MIXED, mwants, MIXED_ROUNDS)
+    mvm = tape.counters()
+    check(mvm["vm.fallbacks.ineligible_leaf"] > 0,
+          "the VM declined no dense leaf")
+    check(mvm["tape.executions"] > 0, "the dense tape route never ran")
+    out["mixed"] = {"rounds": MIXED_ROUNDS, "queries": len(MIXED) *
+                    MIXED_ROUNDS, "counters": {
+                        k: v for k, v in mvm.items() if v}}
+    log(f"mixed: {len(MIXED)} trees (8 read dense row 4) x {MIXED_ROUNDS} "
+        f"rounds, every answer exact; counters {out['mixed']['counters']}")
+    return out
+
+
+def phase_k3_time(torch, ck, tape, flush, card: dict) -> dict:
+    """K3 on the inputs of one real flush of the coalesced path."""
+    batch, pool, zero, tb, lb = flush
+    prog_np, gidx_np = tape.vm_program(batch, zero, tb, lb)
+    prog = torch.from_numpy(prog_np).to(pool.device)
+    gidx = torch.from_numpy(gidx_np).to(pool.device)
+    got = ck.vm_counts(pool, prog, gidx)
+    want = ck.vm_counts_plain(pool, prog, gidx)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    check(err == 0, "K3 differs from its plain version on the coalesced "
+                    "path's inputs")
+    flush_buf = torch.zeros(64 << 20, dtype=torch.int32, device=pool.device)
+    k3 = time_ms(torch, lambda: ck._vm_launch(pool, prog, gidx),
+                 TIMED_LAUNCHES, flush_buf)
+    plain = time_ms(torch, lambda: ck.vm_counts_plain(pool, prog, gidx),
+                    K3_PLAIN_LAUNCHES, flush_buf)
+    n_q, tape_len, _ = prog_np.shape
+    slots, _, domain = gidx_np.shape
+    live = len(batch)
+    # bytes: each pool row the directory names, read once (queries of a
+    # launch that read the same leaf name the same rows, and every pad
+    # entry names the zero row), the program, the directory and the counts
+    real_entries = int((gidx_np != zero).sum())
+    rows_read = int(np.unique(gidx_np).size)
+    nbytes = (rows_read * ck.CONTAINER_WORDS * 4 + prog_np.nbytes
+              + gidx_np.nbytes + n_q * domain * 4)
+    bytes_ms = nbytes / card["hbm_rate"] * 1e3
+    # operations: the live queries' cells, T bitwise ops, one popcount and
+    # one add for each of their 2048 words
+    cycles = (live * domain * ck.CONTAINER_WORDS
+              * (tape_len * BITWISE_CYCLES + POPC_CYCLES + BITWISE_CYCLES))
+    ops_ms = cycles / card["sm_cycles"] * 1e3
+    ms = k3["median"]
+    log(f"K3 timing: one flush of {live} queries, B={n_q} T={tape_len} "
+        f"L={slots} D={domain}, pool {pool.shape[0]} rows, {real_entries} "
+        f"gathered containers over {rows_read} distinct rows, {nbytes} "
+        f"bytes; kernel {fmt(k3, 1e3, 'us')} "
+        f"({nbytes / ms / 1e6:.1f} GB/s at the median), plain "
+        f"{fmt(plain, 1e3, 'us')}, bound {bytes_ms * 1e3:.2f} us by bytes, "
+        f"{ops_ms * 1e3:.2f} us by operations")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain["median"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "spread_us": {k: v * 1e3 if k != "n" else v
+                          for k, v in k3.items()},
+            "shape": {"B": n_q, "live": live, "T": tape_len, "L": slots,
+                      "D": domain, "pool_rows": int(pool.shape[0]),
+                      "gathered": real_entries, "distinct_rows": rows_read}}
 
 
 def phase_k2_time(torch, ck, bm, probe, card: dict) -> dict:
@@ -441,6 +813,60 @@ def phase_k2_time(torch, ck, bm, probe, card: dict) -> dict:
                           for k, v in k2.items()}}
 
 
+def kernel_line(name, source, replaces, launches, err, timing) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+            "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+            # torch has no popcount: no one library call computes these
+            "library_ms": None}
+
+
+def run_paths(torch, ck, bm, containers, tape, Server, roaring,
+              seed: int, card: dict) -> dict:
+    """The server on cuda: the K2 path, the lone query, the coalesced
+    path, then the timings on their own inputs."""
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    words = SHARD_WIDTH // 32
+    cpr = SHARD_WIDTH // roaring.CONTAINER_BITS
+    t0 = time.perf_counter()
+    data = make_rows(N_SHARDS, words, seed)
+    fills = {f"{f}{r}": float(np.bitwise_count(m).sum(dtype=np.int64))
+             / (N_SHARDS * SHARD_WIDTH)
+             for f, rs in data.items() for r, m in rs.items()}
+    log(f"data: {N_SHARDS} shards x {SHARD_WIDTH} columns "
+        f"({N_SHARDS * SHARD_WIDTH} columns), fills "
+        + ", ".join(f"{k} {v:.4f}" for k, v in fills.items())
+        + f", made in {time.perf_counter() - t0:.1f} s")
+
+    tmp = tempfile.mkdtemp(prefix="pilosa_torch_smoke_")
+    srv = Server(tmp, port=0)  # the defaults: cuda, coalescer "auto"
+    try:
+        srv.open()
+        check(srv.device.type == "cuda", f"server runs on {srv.device}")
+        check(srv.coalescer.enabled and srv.coalescer.vm,
+              "the coalescer or the VM is off on cuda")
+        http = Http(srv.uri)
+        check(http.post("/index/i", b'{"options": {"trackExistence": '
+                                    b'true}}')[0] == 200, "create index")
+        import_field(http, roaring, "f", data["f"], N_SHARDS, cpr)
+        out = phase_k2_path(torch, ck, bm, containers, srv, http, data)
+        out["queries"]["intersect_coalesced_lone"] = phase_lone(
+            ck, tape, http, data)
+        out["coalesced"] = phase_coalesced(ck, tape, containers, http,
+                                           roaring, data, cpr,
+                                           srv.coalescer.vm_max_prefetch)
+        check("flush" in out["coalesced"], "no VM flush was recorded")
+        out["k3"] = phase_k3_time(torch, ck, tape,
+                                  out["coalesced"].pop("flush"), card)
+        out["k2"] = phase_k2_time(torch, ck, bm, out.pop("probe"), card)
+        return out
+    finally:
+        srv.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=20240601)
@@ -454,7 +880,7 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     try:
         from pilosa_tpu_torch.ops import bitmap as bm
-        from pilosa_tpu_torch.ops import containers, nvcc_build
+        from pilosa_tpu_torch.ops import containers, nvcc_build, tape
         from pilosa_tpu_torch.ops import cuda_kernels as ck
         from pilosa_tpu_torch.server.server import Server
         from pilosa_tpu_torch.storage import roaring
@@ -470,34 +896,32 @@ def main(argv: list[str] | None = None) -> int:
         phase = "build"
         phase_build(nvcc_build)
         phase = "K2 check"
-        check_err = phase_k2_check(torch, ck, bm, dev, args.seed)
-        phase = "main path"
-        main = phase_main_path(torch, ck, bm, containers, Server, roaring,
-                               N_SHARDS, args.seed)
-        check(main["launches"]["gathered_count_and"] > 0,
-              "K2 was not launched on the main path")
-        phase = "K2 timing"
-        k2 = phase_k2_time(torch, ck, bm, main["probe"], card)
+        k2_err = phase_k2_check(torch, ck, bm, dev, args.seed)
+        phase = "K3 check"
+        k3_err = phase_k3_check(torch, ck, bm, dev, args.seed)
+        phase = "main paths"
+        out = run_paths(torch, ck, bm, containers, tape, Server, roaring,
+                        args.seed, card)
     except Exception as e:  # noqa: BLE001 -- report the phase, exit 1
         print(f"chip_smoke: phase {phase!r} failed: {type(e).__name__}: {e}",
               file=sys.stderr)
         return 1
 
-    log(json.dumps({"queries": main["queries"], "k2_us": k2["spread_us"]}))
-    log(json.dumps({"kernels": [{
-        "name": "gathered_count_and",
-        "route": "cuda",
-        "source": "pilosa_tpu_torch/ops/csrc/gathered_count_and.cu",
-        "replaces": "pilosa_tpu/ops/pallas_kernels.py:244",
-        "launches": main["launches"]["gathered_count_and"],
-        "max_abs_err": max(check_err, k2["max_abs_err"]),
-        "ms": k2["ms"],
-        "plain_ms": k2["plain_ms"],
-        "bound_ms": k2["bound_ms"],
-        "bound_by": k2["bound_by"],
-        # torch has no popcount: no one library call computes this
-        "library_ms": None,
-    }]}))
+    log(json.dumps({"queries": out["queries"], "coalesced":
+                    out["coalesced"], "k2_us": out["k2"]["spread_us"],
+                    "k3_us": out["k3"]["spread_us"],
+                    "k3_shape": out["k3"]["shape"]}))
+    log(json.dumps({"kernels": [
+        kernel_line("gathered_count_and",
+                    "pilosa_tpu_torch/ops/csrc/gathered_count_and.cu",
+                    "pilosa_tpu/ops/pallas_kernels.py:244",
+                    out["launches"]["gathered_count_and"],
+                    max(k2_err, out["k2"]["max_abs_err"]), out["k2"]),
+        kernel_line("vm_counts", "pilosa_tpu_torch/ops/csrc/vm_counts.cu",
+                    "pilosa_tpu/ops/pallas_kernels.py:454",
+                    out["coalesced"]["k3_launches"],
+                    max(k3_err, out["k3"]["max_abs_err"]), out["k3"]),
+    ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["kind"],
         "count": torch.cuda.device_count()}}))

@@ -34,10 +34,11 @@ class API:
         self.executor = executor
 
     def query(self, index: str, pql, shards=None,
-              exclude_columns: bool = False, containers: bool = True) -> list:
+              exclude_columns: bool = False, containers: bool = True,
+              coalesce: bool = True, vm: bool = True) -> list:
         opt = ExecOptions(exclude_columns=exclude_columns,
                           shards=None if shards is None else list(shards),
-                          containers=containers)
+                          coalesce=coalesce, containers=containers, vm=vm)
         return self.executor.execute(index, pql, opt=opt)
 
     def index(self, name: str):

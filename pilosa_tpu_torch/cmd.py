@@ -1,9 +1,11 @@
 """Command line of the port:
 
     python -m pilosa_tpu_torch server -d DIR -b HOST:PORT [--device cpu]
+        [--no-ragged] [--ragged-max-tape N] [--ragged-max-leaves N]
 
 Serves the data directory over HTTP until SIGINT or SIGTERM.  The node
-runs on ``cuda`` unless ``--device cpu`` is given.
+runs on ``cuda`` unless ``--device cpu`` is given.  The ragged flags are
+the reference's (pilosa_tpu/cmd.py:72-85).
 """
 
 from __future__ import annotations
@@ -17,8 +19,14 @@ def _serve(args) -> int:
     from pilosa_tpu_torch.server.server import Server
 
     host, _, port = (args.bind or "127.0.0.1:10101").rpartition(":")
+    ragged = {}
+    if args.ragged_max_tape is not None:
+        ragged["ragged_max_tape"] = args.ragged_max_tape
+    if args.ragged_max_leaves is not None:
+        ragged["ragged_max_leaves"] = args.ragged_max_leaves
     srv = Server(args.data_dir, host=host or "127.0.0.1", port=int(port),
-                 device=args.device)
+                 device=args.device, ragged_enabled=not args.no_ragged,
+                 **ragged)
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())
@@ -42,5 +50,16 @@ def main(argv: list[str] | None = None) -> int:
     ps.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' to run on the "
                          "CPU)")
+    ps.add_argument("--no-ragged", action="store_true",
+                    help="disable ragged megabatch execution: the "
+                         "coalescer merges only identical-shape queries "
+                         "through the fused path (the bitmap VM rides "
+                         "the ragged engine and is off too)")
+    ps.add_argument("--ragged-max-tape", type=int,
+                    help="longest op-tape a query may compile to before "
+                         "falling back to the per-shape fused path")
+    ps.add_argument("--ragged-max-leaves", type=int,
+                    help="most leaf operands a query may stage into a "
+                         "ragged bucket")
     args = p.parse_args(argv)
     return _serve(args)

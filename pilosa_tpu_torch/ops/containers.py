@@ -20,6 +20,10 @@ part of the port yet):
   exceeds the ``[containers]`` threshold in any shard routes the whole
   query to the dense path, as does ``?nocontainers=1`` or
   ``configure(enabled=False)``.
+- **Bitmap VM** -- ``stage_vm`` stages a coalesced Count the same way
+  but keeps only each leaf's local gather rows; at flush the coalescer
+  concatenates the bucket's leaves into one ``megapool`` and runs the
+  whole heterogeneous batch as one launch of K3 (ops/tape.execute_vm).
 
 Configuration and counters are process-wide, as in the reference.
 """
@@ -416,3 +420,161 @@ def plan_fused(idx: Any, call: Any, shards: tuple, opt: Any = None,
         leaves.append(leaf)
     return Plan(shape, leaves, shards, SHARD_WIDTH // CONTAINER_BITS,
                 bm.n_words(SHARD_WIDTH))
+
+
+# ------------------------------------------------------------- bitmap VM
+
+#: Default ``[vm]`` knobs (pilosa_tpu/ops/containers.py:678-679): the
+#: smallest padded domain a staged VM query rounds up to (an empty domain
+#: still gets a real, all-zero-row batch slot), and the per-launch
+#: directory budget in int32 entries (slots x batch x domain), a TPU
+#: scalar-memory limit the port keeps so its launches match the
+#: reference's: oversized batches split, oversized single queries decline
+#: to the dense engines.
+VM_MIN_DOMAIN = 8
+VM_MAX_PREFETCH = 1 << 16
+
+
+class VMStage:
+    """One fused Count read staged for the bitmap VM: the shape, its
+    compiled op-tape, the container leaves in slot order, the per-leaf
+    LOCAL gather rows for the concatenated per-shard root domains (each
+    int32[pad], absent containers and the pow2 tail pointing at the
+    leaf's own zero row).  parallel/coalescer.py globalizes the rows
+    against the bucket's megapool at flush."""
+
+    __slots__ = ("shape", "tape", "leaves", "idxs", "pad")
+
+    def __init__(self, shape: tuple, tape: Any, leaves: list,
+                 idxs: list, pad: int) -> None:
+        self.shape = shape
+        self.tape = tape
+        self.leaves = leaves
+        self.idxs = idxs
+        self.pad = pad
+
+
+def stage_vm(idx: Any, call: Any, shards: tuple,
+             max_tape: int | None = None, max_leaves: int | None = None,
+             min_domain: int = VM_MIN_DOMAIN,
+             max_prefetch: int | None = VM_MAX_PREFETCH) -> VMStage | None:
+    """Stage one fused Count read for the bitmap VM, or None to route the
+    dense engines -- all-or-nothing per query, like ``plan_fused``
+    (pilosa_tpu/ops/containers.py:703, without its delta and kind
+    branches: the port has neither delta planes nor container kinds).
+    Every decline bumps its ``vm.fallbacks.*`` reason."""
+    from pilosa_tpu_torch.ops import tape as _tp
+
+    if not _cfg.enabled or not shards:
+        _tp.bump("vm.fallbacks.disabled")
+        return None
+    leaf_descs: list = []
+    shape = _walk(idx, call, leaf_descs)
+    if shape is None or not leaf_descs:
+        _tp.bump("vm.fallbacks.ineligible_leaf")
+        return None
+    leaves: list[ContainerLeaf] = []
+    for f, row_id in leaf_descs:
+        leaf = f.device_container_leaf(row_id, shards)
+        if leaf.dense_slots():
+            bump("container.fallbacks")
+            _tp.bump("vm.fallbacks.ineligible_leaf")
+            return None
+        leaves.append(leaf)
+    if max_leaves is not None and len(leaves) > max_leaves:
+        _tp.bump("tape.oversize_fallbacks")
+        _tp.bump("vm.fallbacks.oversize")
+        return None
+    tp = _tp.try_compile(shape, len(leaves), max_tape)
+    if tp is None:
+        _tp.bump("vm.fallbacks.oversize")
+        return None
+    mkey = ("vm", shape, tuple(leaf.uid for leaf in leaves),
+            int(min_domain))
+    with _stage_lock:
+        hit = _stage_memo.get(mkey)
+        if hit is not None:
+            _stage_memo[mkey] = _stage_memo.pop(mkey)  # LRU touch
+    if hit is None:
+        domains = [_domain(shape, [leaf.entries[i] for leaf in leaves])
+                   for i in range(len(shards))]
+        total = int(sum(len(d) for d in domains))
+        pad = max(int(min_domain), _pow2(max(1, total)))
+        hit = (total, pad, [_leaf_indices(leaf, domains, pad)
+                            for leaf in leaves])
+        with _stage_lock:
+            _stage_memo[mkey] = hit
+            while len(_stage_memo) > _STAGE_MEMO_CAP:
+                _stage_memo.pop(next(iter(_stage_memo)))
+    total, pad, idxs = hit
+    if max_prefetch is not None and len(leaves) * pad > max_prefetch:
+        # even unbatched, the directory would blow the per-launch budget;
+        # when the plain pow2 pad would have fit, the min-domain floor
+        # blew it -- its own reason
+        if len(leaves) * _pow2(max(1, total)) <= max_prefetch:
+            _tp.bump("vm.fallbacks.min_domain")
+        else:
+            _tp.bump("vm.fallbacks.max_prefetch")
+        return None
+    n_leaves = len(leaves)
+    bump("container.containers_gathered", total * n_leaves)
+    bump("container.containers_skipped",
+         n_leaves * (len(shards) * (SHARD_WIDTH // CONTAINER_BITS) - total))
+    if total == 0:
+        # the query still rides the batch (all-zero-row directory, count
+        # 0): one launch either way
+        bump("container.empty_domains")
+    return VMStage(shape, tp, leaves, idxs, pad)
+
+
+# Megapool memo: a VM bucket's distinct leaves concatenate into ONE word
+# pool the kernel gathers from.  Steady traffic flushes the same leaf sets
+# again and again, and concatenating them per flush would copy hundreds of
+# MiB on the card each time (three 8192-row leaves pad to a 32768-row,
+# 256 MiB pool).  Keyed on the leaf uid tuple: uids change on every
+# rebuild, so stale megapools stop being addressed and age out of the
+# small LRU.
+_mega_lock = threading.Lock()
+_megapool_memo: dict = {}
+_MEGAPOOL_MEMO_CAP = 8
+
+
+def megapool(leaves: list) -> tuple:
+    """(pool, bases, zero_index) for a set of container leaves: the
+    concatenated word pool a VM bucket gathers from, each leaf's row
+    offset keyed by uid, and the canonical all-zero row (the first
+    leaf's own zero row).  The pool's row count pads to pow2 with zero
+    rows, as the reference pads its device megapools
+    (pilosa_tpu/ops/containers.py:875)."""
+    order = sorted({leaf.uid: leaf for leaf in leaves}.values(),
+                   key=lambda leaf: leaf.uid)
+    key = tuple(leaf.uid for leaf in order)
+    with _mega_lock:
+        hit = _megapool_memo.get(key)
+        if hit is not None:
+            _megapool_memo[key] = _megapool_memo.pop(key)  # LRU touch
+            return hit
+    hit = _megapool_plain(order)
+    with _mega_lock:
+        _megapool_memo[key] = hit
+        while len(_megapool_memo) > _MEGAPOOL_MEMO_CAP:
+            _megapool_memo.pop(next(iter(_megapool_memo)))
+    return hit
+
+
+def _megapool_plain(order: list) -> tuple:
+    bases: dict = {}
+    off = 0
+    for leaf in order:
+        bases[leaf.uid] = off
+        off += int(leaf.pool.shape[0])
+    zero_index = bases[order[0].uid] + order[0].n
+    if len(order) == 1:
+        return (order[0].pool, bases, zero_index)
+    first = order[0].pool
+    pool = torch.zeros((_pow2(off), CWORDS), dtype=first.dtype,
+                       device=first.device)
+    for leaf in order:
+        base = bases[leaf.uid]
+        pool[base:base + leaf.pool.shape[0]].copy_(leaf.pool)
+    return (pool, bases, zero_index)

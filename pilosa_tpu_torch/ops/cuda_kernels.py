@@ -4,17 +4,26 @@ K2 -- ``gathered_count_and`` replaces the Pallas directory-walk kernel
 ``_gathered_count_and_kernel`` / ``_gathered_count_and_pallas``
 (pilosa_tpu/ops/pallas_kernels.py:237-284): per pair ``p``,
 ``popcount(a_pool[ai[p]] & b_pool[bi[p]])`` over one 2048-word
-container, as int32[P].  Source: ops/csrc/gathered_count_and.cu (CUDA
-C++ for sm_90a, built by ops/nvcc_build.py, bound with ctypes).  It is
+container, as int32[P].  Source: ops/csrc/gathered_count_and.cu.  It is
 bound by bytes: 2 * P * 8 KiB read per call.
 
-The wrapper takes int32 word tensors (bit views of the reference's
-uint32 words).  On CUDA tensors it launches the kernel on the current
-stream, or raises -- a failed build or launch is never answered by the
-plain version.  The plain PyTorch version is ``bitmap.gathered_pair_counts``
-(gather with clamped indices, AND, plain popcount, sum per pair); on CPU
-tensors the wrapper computes it, which is how the CPU tests reach it.
-``gathered_count_and.launches`` counts kernel launches and nothing else.
+K3 -- ``vm_counts`` replaces the Pallas bitmap VM ``_vm_counts_kernel``
+/ ``_vm_counts_pallas_body`` (pilosa_tpu/ops/pallas_kernels.py:418-486):
+for each (query q, domain slot d), gather ``L`` leaf containers of one
+pool through ``gidx``, interpret q's op-tape (ops/tape.py grammar,
+absolute register operands) and popcount the last register, as
+int32[B, D].  Source: ops/csrc/vm_counts.cu.  It is bound by bytes: 8
+KiB per gathered container.
+
+Both sources are CUDA C++ for sm_90a, built by ops/nvcc_build.py at first
+use and bound with ctypes.  The wrappers take int32 word tensors (bit
+views of the reference's uint32 words).  On CUDA tensors they launch
+their kernel on the current stream, or raise -- a failed build or launch
+is never answered by the plain version.  On CPU tensors they compute the
+plain PyTorch version, which is how the CPU tests reach it:
+``bitmap.gathered_pair_counts`` for K2, ``vm_counts_plain`` for K3.
+``<wrapper>.launches`` counts kernel launches, process-wide, and nothing
+else.
 """
 
 from __future__ import annotations
@@ -29,26 +38,47 @@ from pilosa_tpu_torch.ops import nvcc_build
 
 CONTAINER_WORDS = 2048  # 32-bit words per 2^16-bit container
 
+#: the card's shared memory for one block (Hopper: 227 KiB), less the
+#: VM kernel's static warp sums
+VM_SMEM_LIMIT = 232448 - 64
+
 _count_lock = threading.Lock()
+_bind_lock = threading.Lock()
+_c = ctypes.c_void_p
+_i = ctypes.c_int
+# source name -> (exported C function, argtypes)
+_ENTRIES = {
+    "gathered_count_and": ("gathered_count_and_launch",
+                           [_c, _i, _c, _c, _i, _c, _c, _i, _c]),
+    "vm_counts": ("vm_counts_launch", [_c, _c, _c, _c, _i, _i, _i, _i, _c]),
+}
+_launch_fns: dict = {}
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.gathered_count_and_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    return fn
+def _launcher(name: str):
+    """The C launch function of one source, built and bound on first
+    use."""
+    with _bind_lock:
+        fn = _launch_fns.get(name)
+        if fn is None:
+            sym, argtypes = _ENTRIES[name]
+            fn = getattr(nvcc_build.load(name), sym)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+            _launch_fns[name] = fn
+        return fn
 
 
-_launch_fn = None
-
-
-def _launcher():
-    global _launch_fn
-    if _launch_fn is None:
-        _launch_fn = _bind(nvcc_build.load("gathered_count_and"))
-    return _launch_fn
+def _check_pool(name: str, pool: torch.Tensor) -> None:
+    if pool.dim() != 2 or pool.shape[1] != CONTAINER_WORDS:
+        raise ValueError(f"{name} must be [rows, {CONTAINER_WORDS}], "
+                         f"got {tuple(pool.shape)}")
+    if pool.shape[0] == 0:
+        raise ValueError(f"{name} has no rows")
+    if pool.shape[0] >= 2 ** 31:
+        raise ValueError(f"{name} has too many rows for int32 indices")
+    if pool.data_ptr() % 16:
+        raise ValueError(f"{name} is not 16-byte aligned")
 
 
 def _check(a_pool: torch.Tensor, ai: torch.Tensor, b_pool: torch.Tensor,
@@ -62,19 +92,21 @@ def _check(a_pool: torch.Tensor, ai: torch.Tensor, b_pool: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, a_pool on {dev}")
-    for name, pool in (("a_pool", a_pool), ("b_pool", b_pool)):
-        if pool.dim() != 2 or pool.shape[1] != CONTAINER_WORDS:
-            raise ValueError(f"{name} must be [rows, {CONTAINER_WORDS}], "
-                             f"got {tuple(pool.shape)}")
-        if pool.shape[0] == 0:
-            raise ValueError(f"{name} has no rows")
-        if pool.data_ptr() % 16:
-            raise ValueError(f"{name} is not 16-byte aligned")
+    _check_pool("a_pool", a_pool)
+    _check_pool("b_pool", b_pool)
     if ai.dim() != 1 or bi.dim() != 1 or ai.shape != bi.shape:
         raise ValueError(f"ai and bi must be equal-length vectors, got "
                          f"{tuple(ai.shape)} and {tuple(bi.shape)}")
     if ai.shape[0] >= 2 ** 31:
         raise ValueError("too many pairs for one launch")
+
+
+def _count(wrapper) -> None:
+    with _count_lock:
+        wrapper.launches += 1
+
+
+# -------------------------------------------------------------------- K2
 
 
 def gathered_count_and(a_pool: torch.Tensor, ai: torch.Tensor,
@@ -87,7 +119,7 @@ def gathered_count_and(a_pool: torch.Tensor, ai: torch.Tensor,
     _check(a_pool, ai, b_pool, bi)
     if a_pool.device.type != "cuda":
         return bm.gathered_pair_counts(a_pool, ai, b_pool, bi)
-    launch = _launcher()
+    launch = _launcher("gathered_count_and")
     n = int(ai.shape[0])
     out = torch.empty(n, dtype=torch.int32, device=a_pool.device)
     if n == 0:
@@ -100,8 +132,7 @@ def gathered_count_and(a_pool: torch.Tensor, ai: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"gathered_count_and launch failed: CUDA error "
                            f"{rc}")
-    with _count_lock:
-        gathered_count_and.launches += 1
+    _count(gathered_count_and)
     bm.note_dispatch("gathered_count_and")
     return out
 
@@ -109,12 +140,147 @@ def gathered_count_and(a_pool: torch.Tensor, ai: torch.Tensor,
 gathered_count_and.launches = 0
 
 
+# -------------------------------------------------------------------- K3
+
+
+def vm_smem_bytes(tape_len: int, slots: int) -> int:
+    """Shared memory one K3 block needs: the int4 register file of 128
+    threads, the tape and the cell's row indices (vm_counts.cu
+    ``smem_bytes``)."""
+    return (slots + tape_len) * 128 * 16 + (3 * tape_len + slots) * 4
+
+
+def _check_vm(pool: torch.Tensor, prog: torch.Tensor,
+              gidx: torch.Tensor) -> None:
+    """Types, layout, shapes and values of a K3 call.  ``prog`` and
+    ``gidx`` may lie on the pool's device or on the CPU, where the host
+    built them."""
+    for name, t in (("pool", pool), ("prog", prog), ("gidx", gidx)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("prog", prog), ("gidx", gidx)):
+        if t.device != pool.device and t.device.type != "cpu":
+            raise ValueError(f"{name} is on {t.device}, the pool on "
+                             f"{pool.device}")
+    _check_pool("pool", pool)
+    if prog.dim() != 3 or prog.shape[2] != 3:
+        raise ValueError(f"prog must be [B, T, 3], got {tuple(prog.shape)}")
+    if gidx.dim() != 3 or gidx.shape[1] != prog.shape[0]:
+        raise ValueError(f"gidx must be [L, B, D] with B = "
+                         f"{prog.shape[0]}, got {tuple(gidx.shape)}")
+    n_q, tape_len, _ = prog.shape
+    slots, _, domain = gidx.shape
+    if tape_len == 0 or slots == 0:
+        raise ValueError("prog needs at least one instruction and gidx at "
+                         "least one leaf slot")
+    if n_q * domain >= 2 ** 31:
+        raise ValueError("too many cells for one launch")
+    if vm_smem_bytes(tape_len, slots) > VM_SMEM_LIMIT:
+        raise ValueError(f"a tape of {tape_len} over {slots} slots needs "
+                         f"{vm_smem_bytes(tape_len, slots)} bytes of shared "
+                         f"memory, more than {VM_SMEM_LIMIT}")
+    if gidx.numel():
+        lo, hi = torch.aminmax(gidx)
+        if int(lo) < 0 or int(hi) >= pool.shape[0]:
+            raise IndexError(f"gidx entries must lie in [0, "
+                             f"{pool.shape[0]}), got [{int(lo)}, {int(hi)}]")
+    if prog.numel():
+        # instruction t may read a leaf slot or an earlier output:
+        # registers [0, slots + t)
+        t = torch.arange(tape_len, device=prog.device).view(1, tape_len, 1)
+        ops = prog[:, :, 0]
+        bad = ((ops < 0) | (ops > 4)).any() \
+            | (prog[:, :, 1:] < 0).any() \
+            | (prog[:, :, 1:] >= slots + t).any()
+        if bool(bad):
+            raise ValueError("prog holds an opcode outside 0..4 or an "
+                             "operand that is not an earlier register")
+
+
+def vm_counts_plain(pool: torch.Tensor, prog: torch.Tensor,
+                    gidx: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of K3, a copy of the reference's numpy
+    twin ``_vm_counts_host`` (pilosa_tpu/ops/pallas_kernels.py:507):
+    per query, gather the [L, D, 2048] leaf blocks and run the tape
+    vectorized over the domain axis."""
+    n_q, tape_len, _ = prog.shape
+    slots, _, domain = gidx.shape
+    gidx = gidx.to(pool.device)
+    out = torch.zeros((n_q, domain), dtype=torch.int32, device=pool.device)
+    for q, tape in enumerate(prog.tolist()):
+        regs = [pool.index_select(0, gidx[l, q].to(torch.int64))
+                for l in range(slots)]
+        for op, a, b in tape:
+            xa = regs[a]
+            if op == 4:
+                regs.append(xa)
+                continue
+            xb = regs[b]
+            if op == 0:
+                regs.append(xa & xb)
+            elif op == 1:
+                regs.append(xa | xb)
+            elif op == 2:
+                regs.append(xa ^ xb)
+            else:
+                regs.append(xa & ~xb)
+        out[q] = bm.row_counts_plain(regs[-1])
+    return out
+
+
+def _vm_launch(pool: torch.Tensor, prog: torch.Tensor, gidx: torch.Tensor
+               ) -> torch.Tensor:
+    """Launch K3 on tensors already checked and on the pool's card."""
+    n_q, tape_len, _ = prog.shape
+    slots, _, domain = gidx.shape
+    out = torch.empty((n_q, domain), dtype=torch.int32, device=pool.device)
+    if out.numel() == 0:
+        return out
+    launch = _launcher("vm_counts")
+    with torch.cuda.device(pool.device):
+        stream = torch.cuda.current_stream(pool.device).cuda_stream
+        rc = launch(pool.data_ptr(), prog.data_ptr(), gidx.data_ptr(),
+                    out.data_ptr(), n_q, tape_len, slots, domain, stream)
+    if rc != 0:
+        raise RuntimeError(f"vm_counts launch failed: CUDA error {rc}")
+    return out
+
+
+def vm_counts(pool: torch.Tensor, prog: torch.Tensor,
+              gidx: torch.Tensor) -> torch.Tensor:
+    """Per-cell popcounts int32[B, D] of a batch of op-tapes
+    (``prog`` int32[B, T, 3]) over one pooled operand (``pool``
+    int32[R, 2048]) gathered through ``gidx`` int32[L, B, D].  A CUDA
+    pool launches K3, after copying a host-built ``prog``/``gidx`` to
+    its card; a CPU pool computes ``vm_counts_plain``.  Ticks no
+    dispatch: the caller (ops/tape.execute_vm) owns the one ``vm``
+    tick, as in the reference."""
+    _check_vm(pool, prog, gidx)
+    if pool.device.type != "cuda":
+        return vm_counts_plain(pool, prog, gidx)
+    out = _vm_launch(pool, prog.to(pool.device), gidx.to(pool.device))
+    if out.numel():
+        _count(vm_counts)
+    return out
+
+
+vm_counts.launches = 0
+
+
+# ------------------------------------------------------------- accounting
+
+_KERNELS = (gathered_count_and, vm_counts)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, by kernel name."""
     with _count_lock:
-        return {"gathered_count_and": gathered_count_and.launches}
+        return {k.__name__: k.launches for k in _KERNELS}
 
 
 def reset_launch_counts() -> None:
     with _count_lock:
-        gathered_count_and.launches = 0
+        for k in _KERNELS:
+            k.launches = 0

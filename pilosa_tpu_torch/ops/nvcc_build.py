@@ -26,6 +26,7 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+_name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 #: compiler output (ptxas register / shared-memory report) per source
 build_logs: dict[str, str] = {}
@@ -66,8 +67,12 @@ def _so_path(name: str) -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for one source, compiling it on first use.
-    Raises ``BuildError`` with the compiler's output if nvcc fails."""
+    Raises ``BuildError`` with the compiler's output if nvcc fails.
+    Sources build under a lock of their own, so threads that load
+    different sources run their nvcc processes side by side."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

@@ -15,9 +15,14 @@ does not take, evaluates shard by shard with torch ops on the device.
 Everything runs on the executor's device; the host holds only the
 fragments and the Row results.
 
-Not part of the port yet: the coalescer, the result cache, the cluster
-fan-out, ingest deltas, string keys and the other calls (TopN, Rows,
-GroupBy, Sum/Min/Max, BSI and time ranges, Shift, Store, ClearRow, attrs).
+With a coalescer attached (``Executor.coalescer``, set by the server
+assembly), a fused Count goes through its batching window first
+(parallel/coalescer.py; pilosa_tpu/parallel/executor.py:1748-1766),
+unless the request says ``?nocoalesce=true``.
+
+Not part of the port yet: the result cache, the cluster fan-out, ingest
+deltas, string keys and the other calls (TopN, Rows, GroupBy,
+Sum/Min/Max, BSI and time ranges, Shift, Store, ClearRow, attrs).
 """
 
 from __future__ import annotations
@@ -43,8 +48,13 @@ class ExecOptions:
 
     exclude_columns: bool = False
     shards: list[int] | None = None
+    # ?nocoalesce=true: opt this request out of cross-query batching
+    coalesce: bool = True
     # ?nocontainers=1: route fused reads through the dense stacks
     containers: bool = True
+    # ?novm=1: route coalesced sparse Counts through the dense ragged/
+    # fused engines instead of the bitmap VM
+    vm: bool = True
 
 
 class ExecutionError(ValueError):
@@ -58,6 +68,9 @@ class Executor:
             raise ValueError(f"executor device {self.device} differs from "
                              f"the holder's {holder.device}")
         self.holder = holder
+        # optional cross-query micro-batcher (parallel/coalescer.py),
+        # attached by the server assembly; None = no coalescing
+        self.coalescer = None
 
     # ------------------------------------------------------------- public
 
@@ -301,6 +314,11 @@ class Executor:
         child = call.children[0]
         if self._fuse_eligible(idx, shards, child):
             g = tuple(shards)
+            if self.coalescer is not None and self.coalescer.eligible(opt):
+                # ?nocontainers disables the VM too: it executes over
+                # compressed pools
+                return self.coalescer.count(
+                    self, idx, child, g, use_vm=opt.vm and opt.containers)
             plan = containers.plan_fused(idx, child, g, opt)
             if plan is not None:
                 return sum(plan.counts())

@@ -9,6 +9,7 @@ serves:
     POST /index/{index}/field/{field}/import
     POST /index/{index}/field/{field}/import-roaring/{shard}
     POST /index/{index}/query          (raw PQL or JSON {"query": ...})
+    GET  /debug/ragged
 
 ``serialize_result`` is the reference's (handler.py:46), so the JSON of
 a query is byte-identical between the two packages.  Built on the
@@ -189,12 +190,42 @@ class Handler:
         results = self.api.query(
             path["index"], pql, shards=shards,
             exclude_columns=exclude_columns,
-            containers=params.get("nocontainers") not in ("1", "true"))
+            containers=params.get("nocontainers") not in ("1", "true"),
+            # ?nocoalesce=true: no cross-query batching for this request
+            coalesce=params.get("nocoalesce") != "true",
+            # ?novm=1: coalesced sparse Counts take the dense engines
+            vm=params.get("novm") not in ("1", "true"))
         if exclude_columns:
             for r in results:
                 if isinstance(r, Row):
                     r.exclude_columns = True
         self._json(req, {"results": [serialize_result(r) for r in results]})
+
+    @route("GET", "/debug/ragged")
+    def handle_debug_ragged(self, req, params, path, body):
+        """Ragged megabatch state (ops/tape.py, parallel/coalescer.py),
+        with the reference's keys (pilosa_tpu/server/handler.py:1387):
+        the tape.* / coalescer.shape_* / vm.* counters, the program
+        variants run, the VM's per-reason fallbacks, and the coalescer
+        knobs in force."""
+        from pilosa_tpu_torch.ops import tape
+
+        out = tape.debug()
+        co = self.api.executor.coalescer
+        out["coalescer"] = {"attached": co is not None}
+        if co is not None:
+            out["coalescer"].update({
+                "enabled": co.enabled,
+                "ragged": co.ragged,
+                "maxTape": co.max_tape,
+                "maxLeaves": co.max_leaves,
+                "windowMs": co.window_s * 1e3,
+                "maxBatch": co.max_batch,
+                "vm": co.vm,
+                "vmMinDomain": co.vm_min_domain,
+                "vmMaxPrefetch": co.vm_max_prefetch,
+            })
+        self._json(req, out)
 
     @route("POST", "/index/{index}")
     def handle_create_index(self, req, params, path, body):

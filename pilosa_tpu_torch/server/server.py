@@ -1,8 +1,13 @@
-"""Server: one node's holder, executor, API and HTTP handler.
+"""Server: one node's holder, executor, coalescer, API and HTTP handler.
 
 Port of the single-node assembly of pilosa_tpu/server/server.py.  The
 node runs on ``cuda`` unless the caller passes ``device="cpu"``; asking
 for ``cuda`` without a card raises at construction.
+
+The coalescer knobs and their defaults are the reference's
+(``[coalescer]``, ``[ragged]`` and ``[vm]``, pilosa_tpu/config.py:166-221;
+server.py:235-250).  ``coalescer_enabled="auto"`` turns batching on
+when the node runs on a CUDA card.
 """
 
 from __future__ import annotations
@@ -12,17 +17,34 @@ import torch
 from pilosa_tpu_torch import device as devmod
 from pilosa_tpu_torch.api import API
 from pilosa_tpu_torch.models.holder import Holder
+from pilosa_tpu_torch.ops import containers, tape
+from pilosa_tpu_torch.parallel.coalescer import Coalescer
 from pilosa_tpu_torch.parallel.executor import Executor
 from pilosa_tpu_torch.server.handler import Handler
 
 
 class Server:
     def __init__(self, data_dir: str, host: str = "127.0.0.1", port: int = 0,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 coalescer_enabled="auto", coalescer_window_ms: float = 2.0,
+                 coalescer_max_batch: int = 32, ragged_enabled: bool = True,
+                 ragged_max_tape: int = tape.DEFAULT_MAX_TAPE,
+                 ragged_max_leaves: int = tape.DEFAULT_MAX_LEAVES,
+                 vm_enabled: bool = True,
+                 vm_min_domain: int = containers.VM_MIN_DOMAIN,
+                 vm_max_prefetch: int = containers.VM_MAX_PREFETCH):
         self.device = devmod.resolve(device)
         self.data_dir = data_dir
         self.host = host
         self.port = port
+        # built here, so a bad knob raises before anything opens
+        self.coalescer = Coalescer(
+            window_s=coalescer_window_ms / 1e3,
+            max_batch=coalescer_max_batch, enabled=coalescer_enabled,
+            device=self.device, ragged=ragged_enabled,
+            max_tape=ragged_max_tape, max_leaves=ragged_max_leaves,
+            vm=vm_enabled, vm_min_domain=vm_min_domain,
+            vm_max_prefetch=vm_max_prefetch)
         self.holder: Holder | None = None
         self.executor: Executor | None = None
         self.api: API | None = None
@@ -37,6 +59,7 @@ class Server:
         self.holder = Holder(self.data_dir, device=self.device)
         try:
             self.executor = Executor(self.holder, device=self.device)
+            self.executor.coalescer = self.coalescer
             self.api = API(self.holder, self.executor)
             self.handler = Handler(self.api, self.host, self.port)
         except BaseException:

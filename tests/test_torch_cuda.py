@@ -1,6 +1,8 @@
-"""Tests of the port that need an NVIDIA card: the CUDA kernel K2
-(``gathered_count_and``) against its plain version, and the executor's
-``Count(Intersect(Row, Row))`` route launching it on ``cuda`` pools.
+"""Tests of the port that need an NVIDIA card: the CUDA kernels K2
+(``gathered_count_and``) and K3 (``vm_counts``, the bitmap VM) against
+their plain versions, the executor's ``Count(Intersect(Row, Row))`` route
+launching K2 on ``cuda`` pools, and a coalesced heterogeneous batch
+launching K3 once.
 
 Without a card every test here skips.  On a machine with one, run
 
@@ -22,6 +24,8 @@ import torch
 from pilosa_tpu_torch.models.holder import Holder
 from pilosa_tpu_torch.ops import bitmap as bm
 from pilosa_tpu_torch.ops import cuda_kernels as ck
+from pilosa_tpu_torch.ops import tape
+from pilosa_tpu_torch.parallel.coalescer import Coalescer
 from pilosa_tpu_torch.parallel.executor import ExecOptions, Executor
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
@@ -94,4 +98,98 @@ def test_count_intersect_on_cuda_launches_k2_once(cuda_device):
     assert got == [want]
     assert dc.launches == ["gathered_count_and"]
     assert ex.execute("i", pql, opt=ExecOptions(containers=False)) == [want]
+    h.close()
+
+
+def _vm_case(seed: int, slots: int, tape_len: int, n_q: int, domain: int,
+             rows: int):
+    """Seeded pool, random SSA programs over all five opcodes, and a
+    gather directory whose pad slots point at the zero row."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 2 ** 32, size=(rows, CW), dtype=np.uint32)
+    pool[rows - 1] = 0
+    pool[0] = 0xFFFFFFFF
+    prog = np.zeros((n_q, tape_len, 3), dtype=np.int32)
+    for q in range(n_q):
+        for t in range(tape_len):
+            prog[q, t] = (rng.integers(5), rng.integers(slots + t),
+                          rng.integers(slots + t))
+    gidx = rng.integers(0, rows, size=(slots, n_q, domain)).astype(np.int32)
+    gidx[slots - 1] = rows - 1
+    return pool, prog, gidx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots,tape_len,n_q,domain,rows", [
+    (1, 1, 1, 1, 2), (4, 4, 4, 8, 64), (16, 32, 2, 16, 40),
+    (4, 4, 8, 512, 8192)])
+def test_k3_matches_its_plain_version(cuda_device, slots, tape_len, n_q,
+                                      domain, rows):
+    pool, prog, gidx = _vm_case(slots * 100 + tape_len, slots, tape_len,
+                                n_q, domain, rows)
+    tpool = bm.to_tensor(pool, cuda_device)
+    tprog, tgidx = torch.from_numpy(prog), torch.from_numpy(gidx)
+    before = ck.vm_counts.launches
+    got = ck.vm_counts(tpool, tprog, tgidx)
+    torch.cuda.synchronize()
+    assert ck.vm_counts.launches == before + 1
+    want = ck.vm_counts_plain(tpool, tprog, tgidx)
+    assert torch.equal(got, want)
+    # host-built and card-resident directories give the same answer
+    dev = ck.vm_counts(tpool, tprog.to(cuda_device), tgidx.to(cuda_device))
+    assert torch.equal(dev, want)
+    assert np.array_equal(
+        got.cpu().numpy(),
+        ck.vm_counts_plain(bm.to_tensor(pool), tprog, tgidx).numpy())
+
+
+@pytest.mark.cuda
+def test_k3_refuses_an_index_past_the_pool(cuda_device):
+    pool, prog, gidx = _vm_case(3, 2, 2, 1, 4, 6)
+    gidx[0, 0, 3] = 6
+    with pytest.raises(IndexError):
+        ck.vm_counts(bm.to_tensor(pool, cuda_device), torch.from_numpy(prog),
+                     torch.from_numpy(gidx).to(cuda_device))
+
+
+@pytest.mark.cuda
+def test_a_coalesced_heterogeneous_batch_launches_k3_once(cuda_device):
+    import threading
+
+    rng = np.random.default_rng(9)
+    n_shards = 3
+    h = Holder(None, device=cuda_device)
+    idx = h.create_index("i")
+    f = idx.create_field("f")
+    cols = {r: rng.choice(n_shards * SHARD_WIDTH, size=SHARD_WIDTH // 20,
+                          replace=False) for r in (1, 2, 3)}
+    for r, c in cols.items():
+        f.import_bits(np.full(len(c), r), c)
+    sets = {r: set(c.tolist()) for r, c in cols.items()}
+    qs = {"Count(Intersect(Row(f=1), Row(f=2)))": sets[1] & sets[2],
+          "Count(Union(Row(f=1), Row(f=3)))": sets[1] | sets[3],
+          "Count(Difference(Row(f=2), Row(f=1), Row(f=3)))":
+              sets[2] - sets[1] - sets[3],
+          "Count(Xor(Row(f=3), Row(f=2)))": sets[3] ^ sets[2]}
+    ex = Executor(h, device=cuda_device)
+    ex.coalescer = Coalescer(window_s=2.0, max_batch=len(qs),
+                             device=cuda_device)
+    assert ex.coalescer.enabled  # "auto" on a card
+    tape.reset_counters()
+    before = ck.vm_counts.launches
+    bar = threading.Barrier(len(qs))
+    got = {}
+
+    def run(q):
+        bar.wait()
+        got[q] = ex.execute("i", q)[0]
+
+    ts = [threading.Thread(target=run, args=(q,)) for q in qs]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=120)
+    assert got == {q: len(s) for q, s in qs.items()}
+    assert ck.vm_counts.launches - before == \
+        tape.counters()["vm.executions"] == 1
     h.close()
