@@ -6,11 +6,13 @@
 Run from the root of a checkout, on a machine whose torch sees a CUDA
 card.  It drives the port's main paths -- the HTTP server answering PQL
 Count trees over a 256-shard x 2^20-column index, alone and concurrently
-through the coalescer -- and holds every hand-written kernel against its
-plain PyTorch version on the card:
+through the coalescer, and TopN, Rows and GroupBy over the same index --
+and holds every hand-written kernel against its plain PyTorch version on
+the card:
 
 1. header: the card's name and power limit (nvidia-smi);
-2. build: the K2 and K3 sources, one nvcc each for sm_90a, side by side;
+2. build: the K2, K3, K4 and K5 sources, one nvcc each for sm_90a, side
+   by side;
 3. K2 check: ``gathered_count_and`` against its plain version on seeded
    pools (zero rows, indices past either end, P=1, a P that is not a
    power of two, and P=4096 over two 8192-row pools), bit-exact;
@@ -35,9 +37,22 @@ plain PyTorch version on the card:
    distinct leaf sets and megapool builds; the card's busy share over
    more such rounds (torch.profiler); then rounds that mix in row 4
    (dense), which the VM declines and the dense tape route serves;
-8. K3 timing on the inputs of one real flush of step 7, and K2 timing on
-   step 5's pools (CUDA events around each launch, L2 flushed before
-   each), beside their plain versions and their bounds.
+8. K4 and K5 checks: ``row_counts_masked`` and ``masked_matrix_counts``
+   against their plain versions on seeded words with bit 31 set, at edge
+   shapes (one row, widths that are not a multiple of 4 words, zero
+   masks) and at the shapes of step 9, bit-exact;
+9. the scan path: fields s and u, 64 rows each at fills from 0.49 % to
+   12.5 %, imported on shards 0-63; TopN (unfiltered, filtered over all
+   shards and on ``?shards=5``), Rows (plain, ``limit``/``previous``,
+   ``column``) and GroupBy (two levels, filtered, ``limit``) each once
+   cold and ``QUERY_RUNS`` times warm over HTTP, every answer equal to a
+   numpy oracle, and the K4 and K5 launches equal to the launch sites
+   (counts zeroed just before, read just after);
+10. K3 timing on the inputs of one real flush of step 7, K2 timing on
+   step 5's pools, K4 on the fused TopN's inputs and K5 on one shard's
+   GroupBy level-1 inputs, both recorded from step 9 (CUDA events around
+   each launch, L2 flushed before each), beside their plain versions and
+   their bounds.
 
 Latencies are host-clock times; each is reported as the median with its
 10th and 90th percentiles and the sample count.
@@ -91,6 +106,11 @@ ROUNDS = 60
 MIXED_ROUNDS = 3
 PROFILED_ROUNDS = 10
 N_SHARDS = 256  # of 2^20 columns: the 268,435,456-column index
+SCAN_SHARDS = 64  # shards 0-63 hold the scan path's fields s and u
+SCAN_ROWS = 64  # rows of s and of u
+QUERY_RUNS = 30  # warm runs of each TopN / Rows / GroupBy query
+FILL_BITS = 10  # the scan fields' fills are multiples of 2^-10
+SCAN_COLUMN = (7, 12345)  # Rows(s, column=...): shard 7, offset 12345
 
 _OPS = {"and": "Intersect", "or": "Union", "andnot": "Difference",
         "xor": "Xor"}
@@ -192,7 +212,8 @@ def phase_header(torch) -> dict:
     return {"kind": kind, "hbm_rate": hbm, "sm_cycles": sms * clk_mhz * 1e6}
 
 
-KERNEL_SOURCES = ("gathered_count_and", "vm_counts")
+KERNEL_SOURCES = ("gathered_count_and", "vm_counts", "row_counts_masked",
+                  "masked_matrix_counts")
 
 
 def phase_build(nvcc_build) -> None:
@@ -304,6 +325,75 @@ def phase_k3_check(torch, ck, bm, dev, seed: int) -> int:
             f"max_abs_err {err}")
         check(err == 0 and torch.equal(got, want),
               f"K3 differs from its plain version ({label})")
+    return worst
+
+
+def scan_words(rng, shape) -> np.ndarray:
+    """Random words, every 7th with bit 31 set."""
+    w = rng.integers(0, 2 ** 32, size=shape, dtype=np.uint32)
+    w.reshape(-1)[::7] |= np.uint32(1 << 31)
+    return w
+
+
+def phase_k4_check(torch, ck, bm, dev, seed: int, words: int) -> int:
+    """K4 against its plain version on the card; returns max |err|.
+    Edge shapes, then the scan path's: one shard's 64 rows against one
+    filter row, and the fused TopN's 4096 rows against a 256-row filter
+    stack through an index into its first 64 rows."""
+    rng = np.random.default_rng(seed + 4)
+    cases = [("r1w64", 1, 1, 64, False), ("r5w2048", 5, 1, 2048, False),
+             ("r130w2100", 130, 1, 2100, False),
+             ("r130w2100i", 130, 4, 2100, True),
+             ("r7w2099i", 7, 3, 2099, True),
+             ("shard", SCAN_ROWS, 1, words, False),
+             ("fused", SCAN_SHARDS * SCAN_ROWS, N_SHARDS, words, True)]
+    worst = 0
+    for label, rows, n_filt, w, indexed in cases:
+        mat = scan_words(rng, (rows, w))
+        mat[0] = 0xFFFFFFFF
+        filt = scan_words(rng, (n_filt, w))
+        tmat, tfilt = bm.to_tensor(mat, dev), bm.to_tensor(filt, dev)
+        tidx = None
+        if indexed:
+            tidx = torch.from_numpy(rng.integers(
+                0, min(n_filt, SCAN_SHARDS), size=rows).astype(np.int32)
+            ).to(dev)
+        got = ck.row_counts_masked(tmat, tfilt, tidx)
+        torch.cuda.synchronize()
+        want = bm.row_counts_masked_plain(tmat, tfilt, tidx)
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        worst = max(worst, err)
+        log(f"K4 check {label}: mat {rows}x{w}, {n_filt} filter rows, "
+            f"{'indexed' if indexed else 'filter 0'}, max_abs_err {err}")
+        check(err == 0 and torch.equal(got, want),
+              f"K4 differs from its plain version ({label})")
+    return worst
+
+
+def phase_k5_check(torch, ck, bm, dev, seed: int, words: int) -> int:
+    """K5 against its plain version on the card; returns max |err|.
+    G in {1, 3, 9} x R in {1, 130} x W in {256, 300}, each with a zero
+    mask, then the scan path's level shapes."""
+    rng = np.random.default_rng(seed + 5)
+    cases = [(f"g{g}r{r}w{w}", g, r, w) for g in (1, 3, 9)
+             for r in (1, 130) for w in (256, 300)]
+    cases += [("level0_filtered", 1, 3, words),
+              ("level1_filtered", 4, SCAN_ROWS, words),
+              ("level1", SCAN_ROWS, SCAN_ROWS, words)]
+    worst = 0
+    for label, g, r, w in cases:
+        mat = bm.to_tensor(scan_words(rng, (r, w)), dev)
+        masks = scan_words(rng, (g, w))
+        masks[g - 1] = 0
+        masks = bm.to_tensor(masks, dev)
+        got = ck.masked_matrix_counts(mat, masks)
+        torch.cuda.synchronize()
+        want = bm.masked_matrix_counts_plain(mat, masks)
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        worst = max(worst, err)
+        log(f"K5 check {label}: G={g} R={r} W={w}, max_abs_err {err}")
+        check(err == 0 and torch.equal(got, want),
+              f"K5 differs from its plain version ({label})")
     return worst
 
 
@@ -715,6 +805,258 @@ def phase_coalesced(ck, tape, containers, http: Http, roaring, data: dict,
     return out
 
 
+def graded_rows(rng, n_rows: int, n_shards: int, words: int) -> dict:
+    """Row id -> uint32[n_shards, words] at fills k / 2^FILL_BITS, k
+    spread from 5 (0.49 %) to 128 (12.5 %), a different k for every row,
+    in a shuffled order.  A word of fill k / 2^B combines fresh random
+    words, k's binary digits from the least significant up: a 1 ORs one
+    in, a 0 ANDs one in."""
+    ks = np.round(np.linspace(5, 128, n_rows)).astype(np.int64)
+    rows = {}
+    for r, k in enumerate(rng.permutation(ks)):
+        x = None
+        for b in range(FILL_BITS):
+            bit = (int(k) >> b) & 1
+            if x is None:
+                if bit:
+                    x = rng.integers(0, 2 ** 32, size=(n_shards, words),
+                                     dtype=np.uint32)
+                continue
+            w = rng.integers(0, 2 ** 32, size=(n_shards, words),
+                             dtype=np.uint32)
+            (np.bitwise_or if bit else np.bitwise_and)(x, w, out=x)
+        rows[r] = x
+    return rows
+
+
+def popcounts(m: np.ndarray) -> int:
+    return int(np.bitwise_count(m).sum(dtype=np.int64))
+
+
+def pair_counts(a: dict, b: dict) -> np.ndarray:
+    """counts[i, j] = |a[i] & b[j]| over all shards, int64, in threads
+    (numpy's ufuncs release the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    bs = np.stack([b[j].view(np.uint64) for j in sorted(b)])
+
+    def row(i):
+        return np.bitwise_count(a[i].view(np.uint64)[None] & bs).sum(
+            axis=(1, 2), dtype=np.int64)
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        return np.stack(list(pool.map(row, sorted(a))))
+
+
+def topn_json(counts: dict, n: int) -> list:
+    order = sorted(((c, r) for r, c in counts.items() if c > 0),
+                   key=lambda cr: (-cr[0], cr[1]))
+    return [{"count": c, "id": r} for c, r in order[:n]]
+
+
+def groups_json(fa: str, fb: str, counts: dict) -> list:
+    """GroupBy's JSON for two levels from {(row_a, row_b): count}."""
+    return [{"group": [{"field": fa, "rowID": a}, {"field": fb, "rowID": b}],
+             "count": c} for (a, b), c in sorted(counts.items()) if c > 0]
+
+
+def scan_oracles(data: dict) -> dict:
+    """The numpy answers of the scan path's queries."""
+    t0 = time.perf_counter()
+    s, u = data["s"], data["u"]
+    f1 = data["f"][1][:SCAN_SHARDS]
+    g = {r: m[:SCAN_SHARDS] for r, m in data["g"].items()}
+    su = pair_counts(s, u)
+    gs = {(gr, sr): popcounts(f1 & g[gr] & s[sr]) for gr in g for sr in s}
+    shard, off = SCAN_COLUMN
+    w, b = divmod(off, 32)
+    su_json = groups_json("s", "u", {(i, j): int(su[i, j])
+                                     for i in s for j in u})
+    out = {
+        "topn": topn_json({r: popcounts(m) for r, m in s.items()}, 10),
+        "topn_filtered": topn_json({r: popcounts(m & f1)
+                                    for r, m in s.items()}, 10),
+        "topn_filtered_shard5": topn_json(
+            {r: popcounts(m[5] & f1[5]) for r, m in s.items()}, 10),
+        "rows": sorted(r for r, m in s.items() if m.any()),
+        "rows_limit_previous": [r for r in sorted(s) if r > 20][:10],
+        "rows_column": sorted(r for r, m in s.items()
+                              if (int(m[shard, w]) >> b) & 1),
+        "groupby": su_json,
+        "groupby_filtered": groups_json("g", "s", gs),
+        "groupby_limit": su_json[:10],
+    }
+    log(f"scan oracles in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def scan_queries(width: int) -> tuple:
+    """(label, PQL, URL flags, K4 launches per run, K5 launches per
+    run) of the scan path."""
+    column = SCAN_COLUMN[0] * width + SCAN_COLUMN[1]
+    return (
+        ("topn", "TopN(s, n=10)", "", 0, 0),
+        ("topn_filtered", "TopN(s, Row(f=1), n=10)", "", 1, 0),
+        ("topn_filtered_shard5", "TopN(s, Row(f=1), n=10)", "?shards=5", 1,
+         0),
+        ("rows", "Rows(s)", "", 0, 0),
+        ("rows_limit_previous", "Rows(s, limit=10, previous=20)", "", 0, 0),
+        ("rows_column", f"Rows(s, column={column})", "", 0, 0),
+        # one K5 per shard that holds s and u (level 2 of 2)
+        ("groupby", "GroupBy(Rows(s), Rows(u))", "", 0, SCAN_SHARDS),
+        # two per shard that holds s (the filter masks both levels)
+        ("groupby_filtered", "GroupBy(Rows(g), Rows(s), filter=Row(f=1))",
+         "", 0, 2 * SCAN_SHARDS),
+        ("groupby_limit", "GroupBy(Rows(s), Rows(u), limit=10)", "", 0,
+         SCAN_SHARDS),
+    )
+
+
+def phase_scans(ck, bm, http: Http, roaring, data: dict, cpr: int,
+                words: int, seed: int) -> dict:
+    """TopN, Rows and GroupBy over fields s and u (shards 0-63), each
+    query once cold and QUERY_RUNS times warm, every answer equal to the
+    oracle and K4 / K5 launched exactly at their launch sites; returns
+    the measurements and, in ``probes``, K4's and K5's inputs recorded
+    from one more run of the fused TopN and of the GroupBy."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 7)
+    data["s"] = graded_rows(rng, SCAN_ROWS, SCAN_SHARDS, words)
+    data["u"] = graded_rows(rng, SCAN_ROWS, SCAN_SHARDS, words)
+    fills = sorted(popcounts(m) / m.size / 32 for m in data["s"].values())
+    log(f"scan data: s and u, {SCAN_ROWS} rows each on {SCAN_SHARDS} "
+        f"shards, fills {fills[0]:.4f}-{fills[-1]:.4f}, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for field in ("s", "u"):
+        import_field(http, roaring, field, data[field], SCAN_SHARDS, cpr)
+    wants = scan_oracles(data)
+
+    out: dict = {"queries": {}}
+    # ---- the scan path: counts zeroed just before, read just after
+    ck.reset_launch_counts()
+    for label, pql, flags, k4_per_run, k5_per_run in scan_queries(
+            words * 32):
+        k0 = ck.launch_counts()
+        lat = []
+        for _ in range(1 + QUERY_RUNS):
+            res, ms = http.query(pql, flags)
+            lat.append(ms)
+            check(res == [wants[label]], f"{pql}{flags}: differs from the "
+                                         f"oracle: {str(res)[:300]}")
+        k1 = ck.launch_counts()
+        k4 = k1["row_counts_masked"] - k0["row_counts_masked"]
+        k5 = k1["masked_matrix_counts"] - k0["masked_matrix_counts"]
+        check(k4 == k4_per_run * len(lat),
+              f"{pql}{flags}: K4 launched {k4} times in {len(lat)} runs")
+        check(k5 == k5_per_run * len(lat),
+              f"{pql}{flags}: K5 launched {k5} times in {len(lat)} runs")
+        warm = spread(lat[1:])
+        out["queries"][label] = {"pql": pql + flags, "first_ms": lat[0],
+                                 "warm_ms": warm, "k4": k4, "k5": k5}
+        log(f"{label}: {pql}{flags} = oracle; K4 {k4}, K5 {k5} launches; "
+            f"first {lat[0]:.2f} ms, warm over HTTP {fmt(warm)}")
+    out["launches"] = ck.launch_counts()
+    # ---- end of the scan path
+    log(f"scan path launches: {out['launches']}")
+    check(out["launches"]["gathered_count_and"] == 0
+          and out["launches"]["vm_counts"] == 0,
+          "K2 or K3 launched on the scan path")
+
+    # K4's and K5's inputs on this path, for the timing phase
+    probes: dict = {}
+    real_k4, real_k5 = bm.row_counts_gathered, bm.masked_matrix_counts
+
+    def k4(mat, filt_stack, shard_pos):
+        probes.setdefault("k4", (mat, filt_stack, shard_pos))
+        return real_k4(mat, filt_stack, shard_pos)
+
+    def k5(mat, masks):  # level 2 of GroupBy(s, u), on its first shard
+        probes.setdefault("k5", (mat, masks))
+        return real_k5(mat, masks)
+
+    bm.row_counts_gathered, bm.masked_matrix_counts = k4, k5
+    try:
+        http.query("TopN(s, Row(f=1), n=10)")
+        http.query("GroupBy(Rows(s), Rows(u))")
+    finally:
+        bm.row_counts_gathered, bm.masked_matrix_counts = real_k4, real_k5
+    check(set(probes) == {"k4", "k5"}, f"recorded only {sorted(probes)}")
+    check(probes["k4"][2] is not None
+          and probes["k4"][0].shape[0] == SCAN_SHARDS * SCAN_ROWS,
+          "the fused TopN did not scan the whole matrix stack")
+    out["probes"] = probes
+    return out
+
+
+def phase_k4_time(torch, ck, bm, probe, card: dict) -> dict:
+    """K4 on the fused TopN's own inputs: the field's matrix stack, the
+    filter's stack over all shards and the rows' shard positions."""
+    mat, filt, idx = probe
+    got = ck.row_counts_masked(mat, filt, idx)
+    want = bm.row_counts_masked_plain(mat, filt, idx)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    check(err == 0, "K4 differs from its plain version on the fused TopN's "
+                    "inputs")
+    flush = torch.zeros(64 << 20, dtype=torch.int32, device=mat.device)
+    k4 = time_ms(torch, lambda: ck._row_counts_launch(mat, filt, idx),
+                 TIMED_LAUNCHES, flush)
+    plain = time_ms(torch, lambda: bm.row_counts_masked_plain(mat, filt, idx),
+                    PLAIN_LAUNCHES, flush)
+    rows, words = mat.shape
+    # bytes: the matrix once, each filter row the index names once, the
+    # index and the counts
+    filt_rows = int(torch.unique(idx).numel())
+    nbytes = mat.numel() * 4 + filt_rows * words * 4 + 2 * rows * 4
+    bytes_ms = nbytes / card["hbm_rate"] * 1e3
+    ops_ms = rows * words * K2_CYCLES_PER_WORD / card["sm_cycles"] * 1e3
+    ms = k4["median"]
+    log(f"K4 timing: {rows} rows x {words} words against {filt_rows} of "
+        f"{filt.shape[0]} filter rows, {nbytes} bytes; kernel "
+        f"{fmt(k4, 1e3, 'us')} ({nbytes / ms / 1e6:.1f} GB/s at the "
+        f"median), plain {fmt(plain, 1e3, 'us')}, bound "
+        f"{bytes_ms * 1e3:.2f} us by bytes, {ops_ms * 1e3:.2f} us by "
+        f"operations")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain["median"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "spread_us": {k: v * 1e3 if k != "n" else v
+                          for k, v in k4.items()}}
+
+
+def phase_k5_time(torch, ck, bm, probe, card: dict) -> dict:
+    """K5 on one shard's GroupBy level-1 inputs: u's row matrix against
+    the masks of s's rows."""
+    mat, masks = probe
+    got = ck.masked_matrix_counts(mat, masks)
+    want = bm.masked_matrix_counts_plain(mat, masks)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    check(err == 0, "K5 differs from its plain version on GroupBy's inputs")
+    flush = torch.zeros(64 << 20, dtype=torch.int32, device=mat.device)
+    k5 = time_ms(torch, lambda: ck._mmc_launch(mat, masks), TIMED_LAUNCHES,
+                 flush)
+    plain = time_ms(torch, lambda: bm.masked_matrix_counts_plain(mat, masks),
+                    PLAIN_LAUNCHES, flush)
+    rows, words = mat.shape
+    groups = masks.shape[0]
+    nbytes = (rows + groups) * words * 4 + groups * rows * 4
+    bytes_ms = nbytes / card["hbm_rate"] * 1e3
+    # an AND, a popcount and an add for each of the G * R * W word pairs
+    ops_ms = (groups * rows * words * K2_CYCLES_PER_WORD / card["sm_cycles"]
+              * 1e3)
+    ms = k5["median"]
+    log(f"K5 timing: G={groups} R={rows} W={words}, {nbytes} bytes, "
+        f"{groups * rows * words} word pairs; kernel {fmt(k5, 1e3, 'us')}, "
+        f"plain {fmt(plain, 1e3, 'us')}, bound {bytes_ms * 1e3:.2f} us by "
+        f"bytes, {ops_ms * 1e3:.2f} us by operations")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain["median"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "spread_us": {k: v * 1e3 if k != "n" else v
+                          for k, v in k5.items()}}
+
+
 def phase_k3_time(torch, ck, tape, flush, card: dict) -> dict:
     """K3 on the inputs of one real flush of the coalesced path."""
     batch, pool, zero, tb, lb = flush
@@ -825,7 +1167,7 @@ def kernel_line(name, source, replaces, launches, err, timing) -> dict:
 def run_paths(torch, ck, bm, containers, tape, Server, roaring,
               seed: int, card: dict) -> dict:
     """The server on cuda: the K2 path, the lone query, the coalesced
-    path, then the timings on their own inputs."""
+    path, the scan path, then the timings on their own inputs."""
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
     words = SHARD_WIDTH // 32
@@ -858,9 +1200,14 @@ def run_paths(torch, ck, bm, containers, tape, Server, roaring,
                                            roaring, data, cpr,
                                            srv.coalescer.vm_max_prefetch)
         check("flush" in out["coalesced"], "no VM flush was recorded")
+        out["scans"] = phase_scans(ck, bm, http, roaring, data, cpr, words,
+                                   seed)
         out["k3"] = phase_k3_time(torch, ck, tape,
                                   out["coalesced"].pop("flush"), card)
         out["k2"] = phase_k2_time(torch, ck, bm, out.pop("probe"), card)
+        probes = out["scans"].pop("probes")
+        out["k4"] = phase_k4_time(torch, ck, bm, probes["k4"], card)
+        out["k5"] = phase_k5_time(torch, ck, bm, probes["k5"], card)
         return out
     finally:
         srv.close()
@@ -899,6 +1246,11 @@ def main(argv: list[str] | None = None) -> int:
         k2_err = phase_k2_check(torch, ck, bm, dev, args.seed)
         phase = "K3 check"
         k3_err = phase_k3_check(torch, ck, bm, dev, args.seed)
+        words = (1 << 20) // 32
+        phase = "K4 check"
+        k4_err = phase_k4_check(torch, ck, bm, dev, args.seed, words)
+        phase = "K5 check"
+        k5_err = phase_k5_check(torch, ck, bm, dev, args.seed, words)
         phase = "main paths"
         out = run_paths(torch, ck, bm, containers, tape, Server, roaring,
                         args.seed, card)
@@ -908,9 +1260,12 @@ def main(argv: list[str] | None = None) -> int:
         return 1
 
     log(json.dumps({"queries": out["queries"], "coalesced":
-                    out["coalesced"], "k2_us": out["k2"]["spread_us"],
+                    out["coalesced"], "scans": out["scans"],
+                    "k2_us": out["k2"]["spread_us"],
                     "k3_us": out["k3"]["spread_us"],
-                    "k3_shape": out["k3"]["shape"]}))
+                    "k3_shape": out["k3"]["shape"],
+                    "k4_us": out["k4"]["spread_us"],
+                    "k5_us": out["k5"]["spread_us"]}))
     log(json.dumps({"kernels": [
         kernel_line("gathered_count_and",
                     "pilosa_tpu_torch/ops/csrc/gathered_count_and.cu",
@@ -921,6 +1276,16 @@ def main(argv: list[str] | None = None) -> int:
                     "pilosa_tpu/ops/pallas_kernels.py:454",
                     out["coalesced"]["k3_launches"],
                     max(k3_err, out["k3"]["max_abs_err"]), out["k3"]),
+        kernel_line("row_counts_masked",
+                    "pilosa_tpu_torch/ops/csrc/row_counts_masked.cu",
+                    "pilosa_tpu/ops/pallas_kernels.py:145",
+                    out["scans"]["launches"]["row_counts_masked"],
+                    max(k4_err, out["k4"]["max_abs_err"]), out["k4"]),
+        kernel_line("masked_matrix_counts",
+                    "pilosa_tpu_torch/ops/csrc/masked_matrix_counts.cu",
+                    "pilosa_tpu/ops/pallas_kernels.py:652",
+                    out["scans"]["launches"]["masked_matrix_counts"],
+                    max(k5_err, out["k5"]["max_abs_err"]), out["k5"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["kind"],

@@ -14,6 +14,8 @@ set that the fused executor reads:
 
 Both are cached in one plain per-field dict keyed on the fragments'
 ``(_uid, _gen)``; any write to a fragment makes its entries miss.  The
+TopN scan's operand, ``device_matrix_stack`` (every row of a shard set
+in one matrix), has a cache of its own with the reference's size cap.  The
 other field types (int, time, mutex, bool) are not part of the port yet:
 their options still load, so a data directory holding them opens, but
 the API refuses to create them.
@@ -133,6 +135,8 @@ class Field:
         self._shards: set[int] = set()
         # key -> (gens, value): device row stacks and container leaves
         self._device_cache: dict = {}
+        # ("matrix", shards) -> device_matrix_stack entry
+        self._matrix_stack_cache: dict = {}
         self._lock = threading.RLock()
         if path is not None:
             os.makedirs(path, exist_ok=True)
@@ -174,7 +178,12 @@ class Field:
             return
         for name in sorted(os.listdir(views_dir)):
             self.views[name] = View(os.path.join(views_dir, name),
-                                    self.index, self.name, name)
+                                    self.index, self.name, name,
+                                    **self._view_opts())
+
+    def _view_opts(self) -> dict:
+        return {"device": self.device, "cache_type": self.options.cache_type,
+                "cache_size": self.options.cache_size}
 
     @property
     def has_standard_rows(self) -> bool:
@@ -193,7 +202,8 @@ class Field:
             if v is None:
                 path = (None if self.path is None
                         else os.path.join(self.path, "views", name))
-                v = View(path, self.index, self.name, name)
+                v = View(path, self.index, self.name, name,
+                         **self._view_opts())
                 self.views[name] = v
             return v
 
@@ -338,6 +348,61 @@ class Field:
 
         return self._cached(("cont", row_id, shards), gens, build)
 
+    #: largest matrix stack kept in the cache (bytes); a larger one is
+    #: rebuilt per query (pilosa_tpu/models/field.py:1150)
+    MATRIX_STACK_CACHE_BYTES = 512 << 20
+    #: matrix stacks kept per field (oldest evicted first)
+    MATRIX_STACK_ENTRIES = 8
+
+    def device_matrix_stack(self, shards: tuple[int, ...]):
+        """The standard-view row matrices of ``shards`` concatenated
+        along the row axis, in shard order, for the fused TopN scan
+        (pilosa_tpu/models/field.py:1152): ``(gens, row_ids int64[N],
+        shard_pos int32[N] on the host, shard_pos on the device, int32
+        [N, words] matrix on the device)``, where ``shard_pos[i]`` is the
+        position of row i's shard in ``shards`` and ``gens[i]`` that
+        shard's fragment token.  One device, so no pad rows.  With every
+        fragment empty it returns ``(gens, [], None, None, None)``,
+        uncached.  Cached per shard tuple, except a stack larger than
+        ``MATRIX_STACK_CACHE_BYTES``."""
+        view = self.view(VIEW_STANDARD)
+        frags = [None if view is None else view.fragment(s) for s in shards]
+        gens = []
+        parts = []  # (pos, row_ids, host matrix) per non-empty fragment
+        for i, frag in enumerate(frags):
+            if frag is None:
+                gens.append(0)
+                continue
+            with frag._lock:
+                ids, mat = frag._stacked()
+                gens.append(_frag_gen(frag))
+            if len(ids):
+                parts.append((i, ids, mat))
+        gens = tuple(gens)
+        key = ("matrix", shards)
+        with self._lock:
+            hit = self._matrix_stack_cache.get(key)
+            if hit is not None and hit[0] == gens:
+                return hit
+        if not parts:
+            return (gens, np.empty(0, dtype=np.int64), None, None, None)
+        row_ids = np.concatenate([ids for _, ids, _ in parts])
+        shard_pos = np.concatenate(
+            [np.full(len(ids), pos, dtype=np.int32) for pos, ids, _ in parts])
+        big = np.concatenate([m for _, _, m in parts], axis=0)
+        entry = (gens, row_ids, shard_pos,
+                 torch.from_numpy(shard_pos).to(self.device),
+                 bm.to_tensor(big, self.device))
+        if big.nbytes > self.MATRIX_STACK_CACHE_BYTES:
+            return entry  # uncacheable; the warm entries stay
+        with self._lock:
+            self._matrix_stack_cache.pop(key, None)
+            while len(self._matrix_stack_cache) >= self.MATRIX_STACK_ENTRIES:
+                self._matrix_stack_cache.pop(
+                    next(iter(self._matrix_stack_cache)))
+            self._matrix_stack_cache[key] = entry
+        return entry
+
     # ---------------------------------------------------------- lifecycle
 
     def close(self) -> None:
@@ -345,6 +410,7 @@ class Field:
             view.close()
         with self._lock:
             self._device_cache.clear()
+            self._matrix_stack_cache.clear()
 
     def snapshot(self) -> None:
         for view in self.views.values():

@@ -7,9 +7,15 @@ the matrix is rewritten as one snapshot file and the WAL truncated.  The
 snapshot and WAL formats are the reference's (fragment.py:79-88), so a
 data directory written by either package opens in the other.
 
-Left out: delta planes, BSI planes, time views, the TopN rank cache and
-the background snapshot queue (snapshots here run inline, in one phase).
-Device copies of rows are built by the owning Field, keyed on this
+The fragment keeps the TopN rank cache (models/cache.TopNCache): exact
+row counts stamped with its generation, loaded from the ``.cache`` file
+at a WAL-clean open and saved at snapshot, and its whole row matrix on
+its device (``device_matrix``), cached per generation, for the TopN and
+GroupBy scans.
+
+Left out: delta planes, BSI planes, time views and the background
+snapshot queue (snapshots here run inline, in one phase).  Device copies
+of rows across shards are built by the owning Field, keyed on this
 fragment's ``(_uid, _gen)``.
 """
 
@@ -22,7 +28,9 @@ import struct
 import threading
 
 import numpy as np
+import torch
 
+from pilosa_tpu_torch.models.cache import TopNCache
 from pilosa_tpu_torch.ops import bitmap as bm
 from pilosa_tpu_torch.ops import containers as ct
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
@@ -50,8 +58,11 @@ class Fragment:
     _UID = itertools.count(1)
 
     def __init__(self, path: str | None, index: str, field: str, view: str,
-                 shard: int, max_op_n: int = DEFAULT_MAX_OP_N):
+                 shard: int, *, device: torch.device,
+                 max_op_n: int = DEFAULT_MAX_OP_N,
+                 cache_type: str = "ranked", cache_size: int = 50000):
         self.path = path
+        self.device = device
         self.index = index
         self.field = field
         self.view = view
@@ -70,12 +81,19 @@ class Fragment:
         self._stack_cache: tuple[int, np.ndarray, np.ndarray] | None = None
         # row -> (gen, keys, blocks, bits): the compressed directory
         self._container_cache: dict = {}
+        # (gen, row_ids, int32 [R, words] tensor on the device)
+        self._matrix_cache: tuple | None = None
+        self.topn_cache = TopNCache(cache_type, cache_size)
         self._wal = None
         self._op_n = 0
         if path is not None:
             os.makedirs(os.path.dirname(path), exist_ok=True)
             self._load()
             self._wal = open(self._wal_path, "ab")
+            # a persisted .cache is exact only for a WAL-clean reopen
+            # (pilosa_tpu/models/fragment.py:183-186)
+            if self._op_n == 0:
+                self.topn_cache.load(self._cache_path, self._gen)
 
     # ------------------------------------------------------------------ io
 
@@ -86,6 +104,10 @@ class Fragment:
     @property
     def _wal_path(self) -> str:
         return self.path + ".wal"
+
+    @property
+    def _cache_path(self) -> str:
+        return self.path + ".cache"
 
     @property
     def _wal_new_path(self) -> str:
@@ -203,6 +225,7 @@ class Fragment:
             self._wal.close()
             self._wal = open(self._wal_path, "wb")
             self._op_n = 0
+            self.topn_cache.save(self._cache_path, self._gen)
 
     def _maybe_snapshot(self) -> None:
         if self.path is not None and self._op_n > self.max_op_n:
@@ -455,3 +478,45 @@ class Fragment:
                     blocks = grid[keys].copy()
                 self._container_cache[row] = (self._gen, keys, blocks, bits)
             return keys, blocks, bits
+
+    # ----------------------------------------------------- TopN rank cache
+
+    def cached_row_counts(self, n: int = 0) -> dict[int, int] | None:
+        """Exact {row: count} from the TopN cache when valid for the
+        current generation and sufficient to answer TopN(n) exactly
+        (n=0 demands a complete cache); else None
+        (pilosa_tpu/models/fragment.py:1206)."""
+        with self._lock:
+            counts = self.topn_cache.get(self._gen)
+            if counts is None or not self.topn_cache.exact_for(n):
+                return None
+            return counts
+
+    def cache_row_counts(self, counts: dict[int, int],
+                         gen: int | None = None) -> None:
+        """Store counts computed at generation ``gen`` (default: the
+        current one).  A write since the caller read the matrix makes
+        the entry miss; it is never stamped with the newer generation."""
+        with self._lock:
+            self.topn_cache.put(self._gen if gen is None else gen, counts)
+
+    # ------------------------------------------------------ device matrix
+
+    def device_matrix(self) -> tuple[np.ndarray, torch.Tensor]:
+        """(row_ids int64[R], int32 [R, words] tensor on the fragment's
+        device) of the non-empty rows, cached per generation."""
+        with self._lock:
+            hit = self._matrix_cache
+            if hit is not None and hit[0] == self._gen:
+                return hit[1], hit[2]
+            ids, matrix = self._stacked()
+            dev = bm.to_tensor(matrix, self.device)
+            self._matrix_cache = (self._gen, ids, dev)
+            return ids, dev
+
+    def device_matrix_with_gen(self) -> tuple[int, np.ndarray, torch.Tensor]:
+        """(gen, row_ids, device matrix), the generation read together
+        with the matrix, for correctly stamped cache fills."""
+        with self._lock:
+            ids, dev = self.device_matrix()
+            return self._gen, ids, dev

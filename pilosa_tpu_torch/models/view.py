@@ -11,6 +11,8 @@ from __future__ import annotations
 import os
 import threading
 
+import torch
+
 from pilosa_tpu_torch.models.fragment import Fragment
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
@@ -18,11 +20,16 @@ VIEW_STANDARD = "standard"
 
 
 class View:
-    def __init__(self, path: str | None, index: str, field: str, name: str):
+    def __init__(self, path: str | None, index: str, field: str, name: str,
+                 *, device: torch.device, cache_type: str = "ranked",
+                 cache_size: int = 50000):
         self.path = path
         self.index = index
         self.field = field
         self.name = name
+        # the fragments' device and TopN cache options (the field's)
+        self._frag_opts = {"device": device, "cache_type": cache_type,
+                           "cache_size": cache_size}
         self.fragments: dict[int, Fragment] = {}
         # guards fragment creation; reads are plain dict gets
         self._lock = threading.Lock()
@@ -46,7 +53,7 @@ class View:
         for shard in sorted(seen):
             self.fragments[shard] = Fragment(
                 self._frag_path(shard), self.index, self.field, self.name,
-                shard)
+                shard, **self._frag_opts)
 
     def fragment(self, shard: int) -> Fragment | None:
         return self.fragments.get(shard)
@@ -62,7 +69,7 @@ class View:
             if frag is None:
                 path = None if self.path is None else self._frag_path(shard)
                 frag = Fragment(path, self.index, self.field, self.name,
-                                shard)
+                                shard, **self._frag_opts)
                 self.fragments[shard] = frag
         return frag
 

@@ -17,6 +17,11 @@ Two traps of that layout, both handled here and nowhere else:
 Every public op ticks ``note_dispatch`` once, with the reference's
 launch names, so the launch-count accounting of ``dispatch_counter``
 holds across both packages.
+
+The TopN and GroupBy scans (``row_counts_masked``, ``row_counts_gathered``,
+``masked_matrix_counts``) go through the CUDA kernels K4 and K5 of
+ops/cuda_kernels.py, which launch on CUDA tensors and compute the plain
+versions here (``*_plain``) on CPU tensors.
 """
 
 from __future__ import annotations
@@ -210,3 +215,77 @@ def gathered_pair_counts(a_pool: torch.Tensor, ai: torch.Tensor,
     clipped to each pool (pilosa_tpu/ops/bitmap.py:483-506)."""
     note_dispatch("gathered_pair_counts")
     return row_counts_plain(gather_rows(a_pool, ai) & gather_rows(b_pool, bi))
+
+
+# ---------------------------------------------------------------------------
+# TopN and GroupBy scans (pilosa_tpu/ops/bitmap.py:444-547)
+# ---------------------------------------------------------------------------
+
+
+def row_counts_masked_plain(mat: torch.Tensor, filt_stack: torch.Tensor,
+                            filt_idx: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """The plain version of K4: ``out[r] = |mat[r] & filt_stack[i]|``
+    with ``i = filt_idx[r]``, or 0 without an index -> int32[rows]."""
+    if filt_idx is None:
+        filt = filt_stack[0].unsqueeze(0)
+    else:
+        filt = filt_stack.index_select(0, filt_idx.to(torch.int64))
+    return row_counts_plain(mat & filt)
+
+
+def masked_matrix_counts_plain(mat: torch.Tensor, masks: torch.Tensor
+                               ) -> torch.Tensor:
+    """The plain version of K5: ``out[g, r] = |mat[r] & masks[g]|`` ->
+    int32[groups, rows], one group at a time so no [G, R, W]
+    intermediate is built."""
+    out = torch.empty((masks.shape[0], mat.shape[0]), dtype=torch.int32,
+                      device=mat.device)
+    for g in range(masks.shape[0]):
+        out[g] = row_counts_plain(mat & masks[g])
+    return out
+
+
+def row_counts_masked(mat: torch.Tensor, filt: torch.Tensor
+                      ) -> torch.Tensor:
+    """Per-row |mat[r] & filt| -> int32[rows]: TopN with a filter on one
+    shard (K4, every row against filter row 0)."""
+    from pilosa_tpu_torch.ops import cuda_kernels as ck
+
+    note_dispatch("row_counts_masked")
+    return ck.row_counts_masked(mat, filt.reshape(1, -1))
+
+
+def row_counts_gathered(mat: torch.Tensor, filt_stack: torch.Tensor,
+                        shard_pos: torch.Tensor) -> torch.Tensor:
+    """Per-row |mat[r] & filt_stack[shard_pos[r]]| -> int32[rows]: the
+    fused cross-shard TopN scan, every shard's rows in one launch of
+    K4."""
+    from pilosa_tpu_torch.ops import cuda_kernels as ck
+
+    note_dispatch("row_counts_gathered")
+    return ck.row_counts_masked(mat, filt_stack, shard_pos)
+
+
+def masked_matrix_counts(mat: torch.Tensor, masks: torch.Tensor
+                         ) -> torch.Tensor:
+    """counts[g, r] = |mat[r] & masks[g]| -> int32[groups, rows]: the
+    GroupBy inner product, every group against every row in one launch
+    of K5."""
+    from pilosa_tpu_torch.ops import cuda_kernels as ck
+
+    note_dispatch("masked_matrix_counts")
+    return ck.masked_matrix_counts(mat, masks)
+
+
+def and_pairs(mat: torch.Tensor, masks: torch.Tensor, slots, group_idx
+              ) -> torch.Tensor:
+    """out[p] = mat[slots[p]] & masks[group_idx[p]] -> int32[P, words]:
+    the next GroupBy level's group masks (plain torch, XLA in the
+    reference)."""
+    note_dispatch("and_pairs")
+    rows = torch.as_tensor(np.asarray(slots), dtype=torch.int64,
+                           device=mat.device)
+    groups = torch.as_tensor(np.asarray(group_idx), dtype=torch.int64,
+                             device=masks.device)
+    return mat.index_select(0, rows) & masks.index_select(0, groups)

@@ -15,15 +15,31 @@ absolute register operands) and popcount the last register, as
 int32[B, D].  Source: ops/csrc/vm_counts.cu.  It is bound by bytes: 8
 KiB per gathered container.
 
-Both sources are CUDA C++ for sm_90a, built by ops/nvcc_build.py at first
-use and bound with ctypes.  The wrappers take int32 word tensors (bit
-views of the reference's uint32 words).  On CUDA tensors they launch
+K4 -- ``row_counts_masked`` replaces the Pallas TopN scan
+``_row_counts_kernel`` / ``_row_counts_masked_pallas``
+(pilosa_tpu/ops/pallas_kernels.py:131-162): ``out[r] = |mat[r] &
+filt_stack[i]|`` with ``i = filt_idx[r]``, or 0 without an index, as
+int32[R].  Without the index it is the Pallas kernel's function; with
+it one launch serves the fused cross-shard TopN scan
+(``bitmap.row_counts_gathered``).  Source: ops/csrc/row_counts_masked.cu.
+It is bound by bytes: the matrix read once.
+
+K5 -- ``masked_matrix_counts`` replaces the Pallas GroupBy count
+``_mmc_kernel`` / ``_mmc_pallas`` (pilosa_tpu/ops/pallas_kernels.py:
+638-675): ``out[g, r] = |mat[r] & masks[g]|`` as int32[G, R].  Source:
+ops/csrc/masked_matrix_counts.cu.  It is bound by popcounts at GroupBy's
+shapes: G * R * W word pairs.
+
+All four sources are CUDA C++ for sm_90a, built by ops/nvcc_build.py at
+first use and bound with ctypes.  The wrappers take int32 word tensors
+(bit views of the reference's uint32 words).  On CUDA tensors they launch
 their kernel on the current stream, or raise -- a failed build or launch
 is never answered by the plain version.  On CPU tensors they compute the
 plain PyTorch version, which is how the CPU tests reach it:
-``bitmap.gathered_pair_counts`` for K2, ``vm_counts_plain`` for K3.
-``<wrapper>.launches`` counts kernel launches, process-wide, and nothing
-else.
+``bitmap.gathered_pair_counts`` for K2, ``vm_counts_plain`` for K3,
+``bitmap.row_counts_masked_plain`` for K4 and
+``bitmap.masked_matrix_counts_plain`` for K5.  ``<wrapper>.launches``
+counts kernel launches, process-wide, and nothing else.
 """
 
 from __future__ import annotations
@@ -46,12 +62,19 @@ _count_lock = threading.Lock()
 _bind_lock = threading.Lock()
 _c = ctypes.c_void_p
 _i = ctypes.c_int
+_ll = ctypes.c_longlong
 # source name -> (exported C function, argtypes)
 _ENTRIES = {
     "gathered_count_and": ("gathered_count_and_launch",
                            [_c, _i, _c, _c, _i, _c, _c, _i, _c]),
     "vm_counts": ("vm_counts_launch", [_c, _c, _c, _c, _i, _i, _i, _i, _c]),
+    "row_counts_masked": ("row_counts_masked_launch",
+                          [_c, _c, _c, _c, _i, _ll, _i, _c]),
+    "masked_matrix_counts": ("masked_matrix_counts_launch",
+                             [_c, _c, _c, _i, _i, _ll, _c]),
 }
+#: widest matrix row whose popcount fits the kernels' int32 sums
+MAX_WORDS = 2 ** 26 - 1
 _launch_fns: dict = {}
 
 
@@ -269,9 +292,137 @@ def vm_counts(pool: torch.Tensor, prog: torch.Tensor,
 vm_counts.launches = 0
 
 
+# ------------------------------------------------------------- K4, K5
+
+
+def _check_words(name: str, t: torch.Tensor, dev: torch.device) -> None:
+    """An int32, contiguous 2-D word matrix on ``dev``."""
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, mat on {dev}")
+    if t.dim() != 2:
+        raise ValueError(f"{name} must be [rows, words], got "
+                         f"{tuple(t.shape)}")
+    if t.shape[0] >= 2 ** 31:
+        raise ValueError(f"{name} has too many rows for one launch")
+
+
+def _check_pair(mat: torch.Tensor, name: str, other: torch.Tensor) -> None:
+    _check_words("mat", mat, mat.device)
+    _check_words(name, other, mat.device)
+    words = mat.shape[1]
+    if other.shape[1] != words:
+        raise ValueError(f"{name} has {other.shape[1]} words per row, mat "
+                         f"{words}")
+    if not 0 < words <= MAX_WORDS:
+        raise ValueError(f"rows of {words} words: K4 and K5 take 1 to "
+                         f"{MAX_WORDS}")
+    if other.shape[0] == 0:
+        raise ValueError(f"{name} has no rows")
+
+
+def row_counts_masked(mat: torch.Tensor, filt_stack: torch.Tensor,
+                      filt_idx: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-row ``|mat[r] & filt_stack[i]|`` -> int32[R], ``i =
+    filt_idx[r]`` or 0 without an index.  CUDA tensors launch K4; CPU
+    tensors compute ``bitmap.row_counts_masked_plain``.  Ticks no
+    dispatch: the callers in ops/bitmap.py own it."""
+    _check_pair(mat, "filt_stack", filt_stack)
+    if filt_idx is not None:
+        if filt_idx.dtype != torch.int32:
+            raise TypeError(f"filt_idx must be int32, got {filt_idx.dtype}")
+        if not filt_idx.is_contiguous():
+            raise ValueError("filt_idx must be contiguous")
+        if filt_idx.device != mat.device:
+            raise ValueError(f"filt_idx is on {filt_idx.device}, mat on "
+                             f"{mat.device}")
+        if filt_idx.shape != (mat.shape[0],):
+            raise ValueError(f"filt_idx must be [{mat.shape[0]}], got "
+                             f"{tuple(filt_idx.shape)}")
+        if filt_idx.numel():
+            lo, hi = torch.aminmax(filt_idx)
+            if int(lo) < 0 or int(hi) >= filt_stack.shape[0]:
+                raise IndexError(f"filt_idx entries must lie in [0, "
+                                 f"{filt_stack.shape[0]}), got "
+                                 f"[{int(lo)}, {int(hi)}]")
+    if mat.device.type != "cuda":
+        return bm.row_counts_masked_plain(mat, filt_stack, filt_idx)
+    out = _row_counts_launch(mat, filt_stack, filt_idx)
+    if out.numel():
+        _count(row_counts_masked)
+    return out
+
+
+def _row_counts_launch(mat: torch.Tensor, filt_stack: torch.Tensor,
+                       filt_idx: torch.Tensor | None) -> torch.Tensor:
+    """Launch K4 on tensors already checked and on one card."""
+    rows, words = mat.shape
+    out = torch.empty(rows, dtype=torch.int32, device=mat.device)
+    if rows == 0:
+        return out
+    vec = (words % 4 == 0 and mat.data_ptr() % 16 == 0
+           and filt_stack.data_ptr() % 16 == 0)
+    launch = _launcher("row_counts_masked")
+    with torch.cuda.device(mat.device):
+        stream = torch.cuda.current_stream(mat.device).cuda_stream
+        rc = launch(mat.data_ptr(), filt_stack.data_ptr(),
+                    None if filt_idx is None else filt_idx.data_ptr(),
+                    out.data_ptr(), rows, words, int(vec), stream)
+    if rc != 0:
+        raise RuntimeError(f"row_counts_masked launch failed: CUDA error "
+                           f"{rc}")
+    return out
+
+
+row_counts_masked.launches = 0
+
+
+def masked_matrix_counts(mat: torch.Tensor, masks: torch.Tensor
+                         ) -> torch.Tensor:
+    """``out[g, r] = |mat[r] & masks[g]|`` -> int32[G, R].  CUDA tensors
+    launch K5; CPU tensors compute
+    ``bitmap.masked_matrix_counts_plain``.  Ticks no dispatch: the
+    caller in ops/bitmap.py owns it."""
+    _check_pair(mat, "masks", masks)
+    if masks.shape[0] > 65535 * 32:
+        raise ValueError(f"{masks.shape[0]} masks: K5 takes at most "
+                         f"{65535 * 32}")
+    if mat.device.type != "cuda":
+        return bm.masked_matrix_counts_plain(mat, masks)
+    out = _mmc_launch(mat, masks)
+    if out.numel():
+        _count(masked_matrix_counts)
+    return out
+
+
+def _mmc_launch(mat: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """Launch K5 on tensors already checked and on one card."""
+    rows, words = mat.shape
+    groups = masks.shape[0]
+    out = torch.empty((groups, rows), dtype=torch.int32, device=mat.device)
+    if rows == 0:
+        return out
+    launch = _launcher("masked_matrix_counts")
+    with torch.cuda.device(mat.device):
+        stream = torch.cuda.current_stream(mat.device).cuda_stream
+        rc = launch(mat.data_ptr(), masks.data_ptr(), out.data_ptr(), rows,
+                    groups, words, stream)
+    if rc != 0:
+        raise RuntimeError(f"masked_matrix_counts launch failed: CUDA error "
+                           f"{rc}")
+    return out
+
+
+masked_matrix_counts.launches = 0
+
+
 # ------------------------------------------------------------- accounting
 
-_KERNELS = (gathered_count_and, vm_counts)
+_KERNELS = (gathered_count_and, vm_counts, row_counts_masked,
+            masked_matrix_counts)
 
 
 def launch_counts() -> dict[str, int]:

@@ -20,23 +20,41 @@ assembly), a fused Count goes through its batching window first
 (parallel/coalescer.py; pilosa_tpu/parallel/executor.py:1748-1766),
 unless the request says ``?nocoalesce=true``.
 
+``TopN``, ``Rows`` and ``GroupBy`` read set fields
+(executor.py:1792-2354).  A filtered TopN scans every row of the field
+against its filter in one launch of the CUDA kernel K4: over all shards
+at once through the field's matrix stack when the filter is fused-
+supported, else shard by shard.  GroupBy walks its levels shard by
+shard, each level that has group masks one launch of the CUDA kernel K5.
+Unfiltered scans are plain torch row counts, answered from the
+fragments' TopN rank caches when those are warm.  The shards of one
+node are mapped one after another on the calling thread (``_local_map``).
+
 Not part of the port yet: the result cache, the cluster fan-out, ingest
-deltas, string keys and the other calls (TopN, Rows, GroupBy,
-Sum/Min/Max, BSI and time ranges, Shift, Store, ClearRow, attrs).
+deltas, string keys, attributes, time views and the other calls
+(Sum/Min/Max, BSI, Shift, Store, ClearRow).
 """
 
 from __future__ import annotations
 
+import bisect
+import heapq
+import math
 from dataclasses import dataclass, replace
 
+import numpy as np
 import torch
 
 from pilosa_tpu_torch import device as devmod
 from pilosa_tpu_torch.models.field import FieldType
 from pilosa_tpu_torch.models.row import Row
+from pilosa_tpu_torch.models.view import VIEW_STANDARD
 from pilosa_tpu_torch.ops import bitmap as bm
 from pilosa_tpu_torch.ops import containers, expr
+from pilosa_tpu_torch.parallel.results import (FieldRow, GroupCount, Pair,
+                                               sort_pairs)
 from pilosa_tpu_torch.pql import Call, Query, parse
+from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
 _SET_OPS = {"Union": "or", "Intersect": "and", "Difference": "andnot",
             "Xor": "xor"}
@@ -59,6 +77,11 @@ class ExecOptions:
 
 class ExecutionError(ValueError):
     pass
+
+
+def _next_pow2(n: int) -> int:
+    """Smallest power of two >= n (pilosa_tpu/parallel/executor.py:66)."""
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
 
 
 class Executor:
@@ -104,6 +127,12 @@ class Executor:
             return self._execute_options(idx, call, shards, opt)
         if name in ("Row", "Not", *_SET_OPS):
             return self._execute_bitmap_call(idx, call, shards, opt)
+        if name == "TopN":
+            return self._execute_topn(idx, call, shards, opt)
+        if name == "Rows":
+            return self._execute_rows(idx, call, shards, opt)
+        if name == "GroupBy":
+            return self._execute_group_by(idx, call, shards, opt)
         raise ExecutionError(f"{name}() is not supported by this port yet")
 
     def _check_keys(self, idx, call: Call) -> None:
@@ -122,8 +151,16 @@ class Executor:
                     raise ExecutionError(f"field not found: {fname}")
                 raise ExecutionError(f"field {fname!r} does not use string "
                                      f"keys (option keys=true)")
+        if call.name == "Rows":
+            for arg in ("previous", "column"):
+                if isinstance(call.args.get(arg), str):
+                    raise ExecutionError(f"Rows({arg}=...): string keys are "
+                                         f"not supported by this port yet")
         for c in call.children:
             self._check_keys(idx, c)
+        filt = call.args.get("filter")
+        if isinstance(filt, Call):
+            self._check_keys(idx, filt)
 
     def _target_shards(self, idx, shards, opt: ExecOptions) -> list[int]:
         if opt.shards is not None:
@@ -179,8 +216,11 @@ class Executor:
                 self._fused_supported(idx, c) for c in call.children)
         return False
 
-    def _fuse_eligible(self, idx, shards, call: Call) -> bool:
-        return len(shards) > 1 and self._fused_supported(idx, call)
+    def _fuse_eligible(self, idx, shards, call: Call | None) -> bool:
+        """A real multi-shard batch whose tree, if any, evaluates
+        fused."""
+        return len(shards) > 1 and (call is None
+                                    or self._fused_supported(idx, call))
 
     def _fused_shape(self, idx, call: Call, shards: tuple[int, ...],
                      leaves: list) -> tuple:
@@ -208,6 +248,20 @@ class Executor:
         shape = self._fused_shape(idx, call, shards, leaves)
         return shape, tuple(leaves)
 
+    def _fused_eval(self, idx, call: Call, shards: tuple[int, ...]
+                    ) -> torch.Tensor:
+        """A supported tree -> int32 [n_shards, words] stack on the
+        device, through the dense stacks (executor.py:1187-1201)."""
+        shape, leaves = self._fused_expr(idx, call, shards)
+        return expr.evaluate(shape, leaves)
+
+    @staticmethod
+    def _local_map(fn, shards) -> list:
+        """``fn`` over this node's shards, in order, on the calling
+        thread (the reference's worker pool, executor.py:538, maps the
+        same function)."""
+        return [fn(s) for s in shards]
+
     # ----------------------------------------------------- bitmap queries
 
     def _validate_call_fields(self, idx, call: Call) -> None:
@@ -229,8 +283,7 @@ class Executor:
             if plan is not None:
                 partials = plan.row_words()
             else:
-                shape, leaves = self._fused_expr(idx, call, g)
-                stack = bm.to_numpy(expr.evaluate(shape, leaves))
+                stack = bm.to_numpy(self._fused_eval(idx, call, g))
                 partials = [(s, stack[i].copy()) for i, s in enumerate(g)
                             if stack[i].any()]
         else:
@@ -333,6 +386,366 @@ class Executor:
             if words is not None:
                 total += bm.popcount(words)
         return total
+
+    # --------------------------------------------------------------- TopN
+
+    def _execute_topn(self, idx, call: Call, shards, opt: ExecOptions
+                      ) -> list[Pair]:
+        """Exact TopN by device row scans (executor.py:1792-1939): the
+        counts of every row of the field, filtered when the call has a
+        child, summed over the shards, cut by ``ids``, ``threshold`` or
+        ``tanimotoThreshold``, sorted by count (ties by id) and cut to
+        ``n``."""
+        fname = call.string_arg("_field") or call.args.get("_field")
+        if not fname:
+            raise ExecutionError("TopN() requires a field argument")
+        f = self._field(idx, fname)
+        n = call.uint_arg("n") or 0
+        ids_arg = call.uint_slice_arg("ids")
+        threshold = call.uint_arg("threshold") or 0
+        tanimoto = call.uint_arg("tanimotoThreshold") or 0
+        if tanimoto > 100:
+            raise ExecutionError("Tanimoto Threshold is from 1 to 100 only")
+        if "attrName" in call.args or "attrValues" in call.args:
+            raise ExecutionError("TopN(attrName=..., attrValues=...): "
+                                 "attributes are not supported by this port "
+                                 "yet")
+        shards = self._target_shards(idx, shards, opt)
+        filter_call = call.children[0] if call.children else None
+
+        # A truncated per-shard rank cache is exact only with nothing to
+        # merge: one shard, and no cut applied after the counts.  0
+        # demands a complete cache.
+        single_shard = len(shards) == 1
+        cache_n = n if single_shard and not (ids_arg or threshold) else 0
+
+        def map_fn(shard):
+            view = f.view(VIEW_STANDARD)
+            frag = view.fragment(shard) if view is not None else None
+            if frag is None:
+                return {}
+            if filter_call is None:
+                cached = frag.cached_row_counts(cache_n)
+                if cached is not None:
+                    return cached
+            gen, row_ids, matrix = frag.device_matrix_with_gen()
+            if len(row_ids) == 0:
+                return {}
+            if filter_call is not None:
+                fw = self._bitmap_words_shard(idx, filter_call, shard)
+                if fw is None:
+                    return {}
+                counts = bm.row_counts_masked(matrix, fw)
+            else:
+                counts = bm.row_counts(matrix)
+            counts = counts.to("cpu").numpy()
+            out = {int(r): int(c) for r, c in zip(row_ids, counts) if c > 0}
+            if filter_call is None:
+                frag.cache_row_counts(out, gen=gen)
+            return out
+
+        fused_ok = self._fuse_eligible(idx, shards, filter_call)
+        if fused_ok:
+            parts = [self._fused_topn_counts_uncached(idx, f, filter_call,
+                                                      tuple(shards))]
+        else:
+            parts = self._local_map(map_fn, shards)
+        totals: dict[int, int] = {}
+        for part in parts:
+            for r, c in part.items():
+                totals[r] = totals.get(r, 0) + c
+
+        if ids_arg:
+            allowed = set(ids_arg)
+            totals = {r: c for r, c in totals.items() if r in allowed}
+        if tanimoto and filter_call is not None:
+            # Tanimoto similarity (fragment.go:1588-1652): the full row
+            # count strictly inside (|src|*T/100, |src|*100/T), then the
+            # coefficient ceil(100*|A∩src| / (|A|+|src|-|A∩src|)) > T,
+            # on counts summed over the shards
+            src_count = self._execute_count(
+                idx, Call("Count", children=[filter_call]), shards, opt)
+            if fused_ok:
+                full_counts = self._fused_topn_counts_uncached(
+                    idx, f, None, tuple(shards))
+            else:
+                full = self._execute_topn(
+                    idx, Call("TopN", {"_field": fname}), shards, opt)
+                full_counts = {p.id: p.count for p in full}
+            lo = src_count * tanimoto / 100.0
+            hi = src_count * 100.0 / tanimoto
+            kept = {}
+            for r, inter in totals.items():
+                cnt = full_counts.get(r, 0)
+                if not (lo < cnt < hi) or inter == 0:
+                    continue
+                coeff = math.ceil(inter * 100.0
+                                  / (cnt + src_count - inter))
+                if coeff > tanimoto:
+                    kept[r] = inter
+            totals = kept
+        elif threshold:
+            totals = {r: c for r, c in totals.items() if c >= threshold}
+
+        pairs = sort_pairs([Pair(id=r, count=c) for r, c in totals.items()])
+        if n:
+            pairs = pairs[:n]
+        return pairs
+
+    def _fused_topn_counts_uncached(self, idx, f, filter_call,
+                                    shards: tuple[int, ...]
+                                    ) -> dict[int, int]:
+        """Every shard's TopN row counts in one scan of the field's
+        matrix stack (executor.py:1965-2046): with a filter, one launch
+        of K4 against the filter's fused stack, each row against its own
+        shard's filter row.  An unfiltered scan is answered from the
+        fragments' rank caches when every one is complete, and otherwise
+        warms them."""
+        view = f.view(VIEW_STANDARD)
+        totals: dict[int, int] = {}
+        if view is None:
+            return totals
+        if filter_call is None:
+            cached_parts = []
+            for s in shards:
+                frag = view.fragment(s)
+                if frag is None:
+                    continue
+                c = frag.cached_row_counts(0)
+                if c is None:
+                    cached_parts = None
+                    break
+                cached_parts.append(c)
+            if cached_parts is not None:
+                for part in cached_parts:
+                    for r, c in part.items():
+                        totals[r] = totals.get(r, 0) + c
+                return totals
+
+        gens, row_ids, shard_pos, pos_dev, mat_dev = \
+            f.device_matrix_stack(shards)
+        if mat_dev is None:
+            return totals
+        if filter_call is not None:
+            filt = self._fused_eval(idx, filter_call, shards)
+            counts = bm.row_counts_gathered(mat_dev, filt, pos_dev)
+        else:
+            counts = bm.row_counts(mat_dev)
+        # int64 before the test: a count is never compared as a word
+        counts = counts.to("cpu").numpy().astype(np.int64)[:len(row_ids)]
+        if filter_call is not None:
+            for rid, c in zip(row_ids, counts):
+                if c > 0:
+                    rid = int(rid)
+                    totals[rid] = totals.get(rid, 0) + int(c)
+            return totals
+
+        per_shard: dict[int, dict[int, int]] = {}
+        for rid, pos, c in zip(row_ids, shard_pos, counts):
+            if c > 0:
+                rid, c = int(rid), int(c)
+                totals[rid] = totals.get(rid, 0) + c
+                per_shard.setdefault(int(pos), {})[rid] = c
+        # warm every fragment's cache, those whose rows all counted zero
+        # too; stamp it with the generation the stack was read at, and
+        # only when the token's uid is still the live fragment's
+        for pos, s in enumerate(shards):
+            frag = view.fragment(s)
+            tok = gens[pos]
+            if (frag is not None and isinstance(tok, tuple)
+                    and tok[0] == frag._uid):
+                frag.cache_row_counts(per_shard.get(pos, {}), gen=tok[1])
+        return totals
+
+    # --------------------------------------------------------------- Rows
+
+    def _execute_rows(self, idx, call: Call, shards, opt: ExecOptions
+                      ) -> list[int]:
+        """The row ids of a field's standard view, ascending
+        (executor.py:2050-2136): past ``previous``, holding ``column``,
+        at most ``limit``.  ``from``/``to`` are ignored, as the
+        reference ignores them on a set field."""
+        # "field=" is the reference's backwards-compat spelling
+        fname = call.args.get("_field") or call.args.get("field")
+        if not fname:
+            raise ExecutionError("Rows() requires a field argument")
+        f = self._field(idx, fname)
+        limit = call.uint_arg("limit")
+        previous = call.uint_arg("previous")
+        column = call.uint_arg("column")
+        shards = self._target_shards(idx, shards, opt)
+
+        def push_down(ids: list[int]) -> list[int]:
+            # previous/limit apply inside the shard scan, so a shard
+            # never ships more than ``limit`` ids past ``previous``
+            if previous is not None:
+                ids = ids[bisect.bisect_right(ids, previous):]
+            if limit is not None:
+                ids = ids[:limit]
+            return ids
+
+        def map_fn(shard):
+            if column is not None and shard != column // SHARD_WIDTH:
+                return []
+            view = f.view(VIEW_STANDARD)
+            frag = view.fragment(shard) if view is not None else None
+            if frag is None:
+                return []
+            if column is not None:
+                # the column's word down the row matrix: a row qualifies
+                # when its bit is set (rowFilter ColumnFilter)
+                off = column % SHARD_WIDTH
+                w, b = off // bm.WORD_BITS, off % bm.WORD_BITS
+                ids_arr, matrix = frag._stacked()
+                if len(ids_arr) == 0:
+                    return []
+                mask = (matrix[:, w] >> np.uint32(b)) & np.uint32(1)
+                return push_down(sorted(int(r)
+                                        for r in ids_arr[mask.astype(bool)]))
+            return push_down(frag.row_ids())
+
+        parts = self._local_map(map_fn, shards)
+        # bounded k-way merge of the sorted per-shard lists, deduplicated,
+        # stopping at ``limit``
+        out: list[int] = []
+        for r in heapq.merge(*parts):
+            if out and r == out[-1]:
+                continue
+            out.append(r)
+            if limit is not None and len(out) >= limit:
+                break
+        return out
+
+    # ------------------------------------------------------------ GroupBy
+
+    def _execute_group_by(self, idx, call: Call, shards, opt: ExecOptions
+                          ) -> list[GroupCount]:
+        """Counts of the cartesian intersections of child Rows queries
+        (executor.py:2140-2354), shard by shard and level by level: each
+        level with group masks counts every (group, row) pair in one
+        launch of K5 and builds the surviving groups' masks; the first
+        level without a filter is a plain row count."""
+        if not call.children:
+            raise ExecutionError("GroupBy() requires at least one Rows query")
+        for child in call.children:
+            if child.name != "Rows":
+                raise ExecutionError("GroupBy() children must be Rows queries")
+        limit = call.uint_arg("limit")
+        filter_call = call.call_arg("filter")
+        shards = self._target_shards(idx, shards, opt)
+        child_fields = []
+        child_allowed: list[set | None] = []
+        for child in call.children:
+            fname = child.args.get("_field") or child.args.get("field")
+            if not fname:
+                raise ExecutionError("Rows() requires a field argument")
+            child_fields.append(self._field(idx, fname))
+            # a child with limit/column/previous runs once over all the
+            # shards and restricts the walk to its rows
+            if (child.uint_arg("limit") is not None
+                    or child.uint_arg("column") is not None
+                    or child.uint_arg("previous") is not None):
+                allowed = self._execute_rows(idx, child, shards, opt)
+                if not allowed:
+                    return []
+                child_allowed.append(set(allowed))
+            else:
+                child_allowed.append(None)
+
+        # a fused-supported filter evaluates once over all the shards;
+        # each shard slices its row out of the stack
+        filt_stack = None
+        shard_pos: dict[int, int] = {}
+        if (filter_call is not None
+                and self._fuse_eligible(idx, shards, filter_call)):
+            shard_pos = {s: i for i, s in enumerate(shards)}
+            filt_stack = self._fused_eval(idx, filter_call, tuple(shards))
+
+        def map_fn(shard):
+            mats = []
+            for f, allowed in zip(child_fields, child_allowed):
+                view = f.view(VIEW_STANDARD)
+                frag = view.fragment(shard) if view is not None else None
+                if frag is None:
+                    return {}
+                row_ids, matrix = frag.device_matrix()
+                if allowed is not None and len(row_ids):
+                    keep = np.flatnonzero(np.isin(
+                        row_ids, np.fromiter(allowed, dtype=np.int64)))
+                    row_ids = row_ids[keep]
+                    matrix = matrix.index_select(
+                        0, torch.from_numpy(keep).to(matrix.device))
+                if len(row_ids) == 0:
+                    return {}
+                mats.append((f.name, row_ids, matrix))
+            # The batched cartesian walk.  ``masks`` keeps its power-of-
+            # two row count across levels; the live groups are
+            # ``prefixes``, and the pad rows' counts are never read.
+            prefixes: list[tuple] = [()]
+            masks = None  # [G_padded, words] on the device; None = all
+            if filt_stack is not None and shard in shard_pos:
+                masks = filt_stack[shard_pos[shard]].unsqueeze(0)
+            elif filter_call is not None:
+                base = self._bitmap_words_shard(idx, filter_call, shard)
+                if base is None:
+                    return {}
+                masks = base.unsqueeze(0)
+            for level, (fname, row_ids, matrix) in enumerate(mats):
+                last = level == len(mats) - 1
+                if masks is None:
+                    cnts = bm.row_counts(matrix).to("cpu").numpy()[None, :]
+                else:
+                    cnts = bm.masked_matrix_counts(
+                        matrix, masks).to("cpu").numpy()[:len(prefixes)]
+                nz_g, nz_r = np.nonzero(cnts)
+                if len(nz_g) == 0:
+                    return {}
+                if last:
+                    return {
+                        prefixes[g] + ((fname, int(row_ids[r])),):
+                            int(cnts[g, r])
+                        for g, r in zip(nz_g, nz_r)
+                    }
+                new_prefixes = [
+                    prefixes[g] + ((fname, int(row_ids[r])),)
+                    for g, r in zip(nz_g, nz_r)
+                ]
+                p = len(nz_g)
+                pp = _next_pow2(p)
+                slots = np.zeros(pp, dtype=np.int32)
+                slots[:p] = nz_r
+                if masks is None:
+                    new_masks = matrix.index_select(
+                        0, torch.from_numpy(slots.astype(np.int64)).to(
+                            matrix.device))
+                else:
+                    gsel = np.zeros(pp, dtype=np.int32)
+                    gsel[:p] = nz_g
+                    new_masks = bm.and_pairs(matrix, masks, slots, gsel)
+                prefixes, masks = new_prefixes, new_masks
+            return {}
+
+        totals: dict[tuple, int] = {}
+        for part in self._local_map(map_fn, shards):
+            for key, c in part.items():
+                if any(allowed is not None and key[i][1] not in allowed
+                       for i, allowed in enumerate(child_allowed)):
+                    continue
+                totals[key] = totals.get(key, 0) + c
+
+        out = [
+            GroupCount(group=[FieldRow(field=f, row_id=r) for f, r in key],
+                       count=c)
+            for key, c in sorted(totals.items())
+        ]
+        # offset before limit (executor.go:1135-1149); an offset past the
+        # end keeps every group, as the reference does
+        offset = call.uint_arg("offset")
+        if offset is not None:
+            out = out[offset:] if offset < len(out) else out
+        if limit is not None:
+            out = out[:limit]
+        return out
 
     # ---------------------------------------------------------- writes
 

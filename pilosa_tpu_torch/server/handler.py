@@ -31,6 +31,7 @@ from pilosa_tpu_torch.api import API, ApiError, ConflictError, NotFoundError
 from pilosa_tpu_torch.models.field import FieldOptions
 from pilosa_tpu_torch.models.index import IndexOptions
 from pilosa_tpu_torch.models.row import Row
+from pilosa_tpu_torch.parallel.results import GroupCount, Pair, PairField
 
 #: largest accepted request body
 MAX_REQUEST_BYTES = 256 << 20
@@ -38,7 +39,8 @@ MAX_REQUEST_BYTES = 256 << 20
 
 def serialize_result(res):
     """Query result -> JSON-able value (pilosa_tpu/server/handler.py:46,
-    for the result types this port returns)."""
+    for the result types this port returns): a Row, TopN's Pairs,
+    GroupBy's GroupCounts, Rows' ids, a count or a write's bool."""
     if isinstance(res, Row):
         out = {}
         if res.exclude_columns:
@@ -50,6 +52,15 @@ def serialize_result(res):
         if res.attrs:
             out["attrs"] = res.attrs
         return out
+    if isinstance(res, Pair):
+        return _pair_dict(res)
+    if isinstance(res, PairField):
+        return _pair_dict(res.pair)
+    if isinstance(res, GroupCount):
+        return {
+            "group": [_field_row_dict(fr) for fr in res.group],
+            "count": int(res.count),
+        }
     if isinstance(res, list):
         return [serialize_result(r) for r in res]
     if isinstance(res, np.integer):
@@ -57,6 +68,26 @@ def serialize_result(res):
     if isinstance(res, (bool, int, str)) or res is None:
         return res
     raise TypeError(f"unserializable result type: {type(res)!r}")
+
+
+def _pair_dict(p: Pair) -> dict:
+    d = {"count": int(p.count)}
+    if p.key:
+        d["key"] = p.key
+    else:
+        d["id"] = int(p.id)
+    return d
+
+
+def _field_row_dict(fr) -> dict:
+    d = {"field": fr.field}
+    if fr.row_key:
+        d["rowKey"] = fr.row_key
+    else:
+        d["rowID"] = int(fr.row_id)
+    if fr.value is not None:
+        d["value"] = int(fr.value)
+    return d
 
 
 # (method, compiled path regex, handler-method name)

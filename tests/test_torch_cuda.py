@@ -1,8 +1,10 @@
 """Tests of the port that need an NVIDIA card: the CUDA kernels K2
-(``gathered_count_and``) and K3 (``vm_counts``, the bitmap VM) against
-their plain versions, the executor's ``Count(Intersect(Row, Row))`` route
-launching K2 on ``cuda`` pools, and a coalesced heterogeneous batch
-launching K3 once.
+(``gathered_count_and``), K3 (``vm_counts``, the bitmap VM), K4
+(``row_counts_masked``, the TopN scan) and K5 (``masked_matrix_counts``,
+the GroupBy count) against their plain versions, the executor's
+``Count(Intersect(Row, Row))`` route launching K2 on ``cuda`` pools, a
+coalesced heterogeneous batch launching K3 once, and TopN and GroupBy
+launching K4 and K5 where the CPU tests see their dispatch sites.
 
 Without a card every test here skips.  On a machine with one, run
 
@@ -192,4 +194,80 @@ def test_a_coalesced_heterogeneous_batch_launches_k3_once(cuda_device):
     assert got == {q: len(s) for q, s in qs.items()}
     assert ck.vm_counts.launches - before == \
         tape.counters()["vm.executions"] == 1
+    h.close()
+
+
+def _words(seed: int, shape) -> np.ndarray:
+    """Random words, every 7th with bit 31 set."""
+    w = np.random.default_rng(seed).integers(0, 2 ** 32, size=shape,
+                                             dtype=np.uint32)
+    w.reshape(-1)[::7] |= np.uint32(1 << 31)
+    return w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n_filt,words,indexed", [
+    (1, 1, 64, False), (5, 1, 2048, False), (130, 1, 2100, False),
+    (130, 4, 2100, True), (7, 3, 2099, True), (4096, 64, 32768, True)])
+def test_k4_matches_its_plain_version(cuda_device, rows, n_filt, words,
+                                      indexed):
+    mat = bm.to_tensor(_words(rows + words, (rows, words)), cuda_device)
+    filt = bm.to_tensor(_words(n_filt, (n_filt, words)), cuda_device)
+    idx = None
+    if indexed:
+        idx = torch.from_numpy(np.random.default_rng(rows).integers(
+            0, n_filt, size=rows).astype(np.int32)).to(cuda_device)
+    before = ck.row_counts_masked.launches
+    got = ck.row_counts_masked(mat, filt, idx)
+    torch.cuda.synchronize()
+    assert ck.row_counts_masked.launches == before + 1
+    assert torch.equal(got, bm.row_counts_masked_plain(mat, filt, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups,rows,words", [
+    (1, 1, 256), (3, 130, 300), (9, 130, 256), (4, 64, 32768),
+    (64, 64, 32768), (33, 65, 1001)])
+def test_k5_matches_its_plain_version(cuda_device, groups, rows, words):
+    mat = bm.to_tensor(_words(rows, (rows, words)), cuda_device)
+    masks = _words(groups + 100, (groups, words))
+    masks[groups - 1] = 0
+    masks = bm.to_tensor(masks, cuda_device)
+    before = ck.masked_matrix_counts.launches
+    got = ck.masked_matrix_counts(mat, masks)
+    torch.cuda.synchronize()
+    assert ck.masked_matrix_counts.launches == before + 1
+    assert torch.equal(got, bm.masked_matrix_counts_plain(mat, masks))
+
+
+@pytest.mark.cuda
+def test_topn_and_groupby_on_cuda_launch_k4_and_k5(cuda_device):
+    rng = np.random.default_rng(21)
+    n_shards = 3
+    h = Holder(None, device=cuda_device)
+    idx = h.create_index("i")
+    sets = {}
+    for fname, rows in (("f", (1,)), ("s", range(6)), ("u", range(4))):
+        fld = idx.create_field(fname)
+        for r in rows:
+            c = rng.choice(n_shards * SHARD_WIDTH, size=SHARD_WIDTH // 16,
+                           replace=False)
+            fld.import_bits(np.full(len(c), r), c)
+            sets[fname, r] = set(c.tolist())
+    ex = Executor(h, device=cuda_device)
+    counts = {r: len(sets["s", r] & sets["f", 1]) for r in range(6)}
+    want = sorted(counts.items(), key=lambda kv: (-kv[1], kv[0]))[:3]
+    before = ck.launch_counts()
+    got = ex.execute("i", "TopN(s, Row(f=1), n=3)")[0]
+    assert [(p.id, p.count) for p in got] == want
+    groups = ex.execute("i", "GroupBy(Rows(s), Rows(u))")[0]
+    assert {(gc.group[0].row_id, gc.group[1].row_id): gc.count
+            for gc in groups} == {
+        (a, b): len(sets["s", a] & sets["u", b])
+        for a in range(6) for b in range(4)
+        if sets["s", a] & sets["u", b]}
+    after = ck.launch_counts()
+    assert after["row_counts_masked"] - before["row_counts_masked"] == 1
+    assert (after["masked_matrix_counts"]
+            - before["masked_matrix_counts"]) == n_shards
     h.close()
