@@ -6,13 +6,13 @@
 Run from the root of a checkout, on a machine whose torch sees a CUDA
 card.  It drives the port's main paths -- the HTTP server answering PQL
 Count trees over a 256-shard x 2^20-column index, alone and concurrently
-through the coalescer, and TopN, Rows and GroupBy over the same index --
-and holds every hand-written kernel against its plain PyTorch version on
-the card:
+through the coalescer, TopN, Rows and GroupBy over the same index, and
+range rows and Sum/Min/Max over an int field on it -- and holds every
+hand-written kernel against its plain PyTorch version on the card:
 
 1. header: the card's name and power limit (nvidia-smi);
-2. build: the K2, K3, K4 and K5 sources, one nvcc each for sm_90a, side
-   by side;
+2. build: the K2, K3, K4, K5, K6 and K1 sources, one nvcc each for
+   sm_90a, side by side;
 3. K2 check: ``gathered_count_and`` against its plain version on seeded
    pools (zero rows, indices past either end, P=1, a P that is not a
    power of two, and P=4096 over two 8192-row pools), bit-exact;
@@ -48,11 +48,29 @@ the card:
    cold and ``QUERY_RUNS`` times warm over HTTP, every answer equal to a
    numpy oracle, and the K4 and K5 launches equal to the launch sites
    (counts zeroed just before, read just after);
-10. K3 timing on the inputs of one real flush of step 7, K2 timing on
+10. K6 and K1 checks: ``bsi_compare`` (and ``bsi_compare_unsigned``)
+   and ``count_and`` against their plain versions on seeded words: depths
+   1, 20 and 63, predicates 0, 2^depth - 1 and past 2^depth, widths that
+   are not a multiple of 4 words, S = 1, the BSI path's stack shape;
+   lengths that are not a multiple of the block, all-ones words, a strided
+   plane, and 2^26 all-ones words (2^31 bits), bit-exact;
+11. the BSI path: int field v (min -10^6, max 10^6, base 0, bitDepth 20)
+   on all 256 shards, about 70 % of the columns holding a value, 30 % of
+   those negative; its 22 plane rows per shard imported through
+   ``import-roaring`` into the view ``bsig_v``, 3000 values through
+   ``/import-value``; range Counts (every operator, a between across
+   zero, ``!= null``, out of range, inside an Intersect), a per-shard
+   ``Row(v > 999000)`` with ``?shards=5``, and Sum/Min/Max with and
+   without a filter, each once cold and ``QUERY_RUNS`` times warm, every
+   answer equal to a numpy oracle on the values and K6, K4 and K1
+   launched exactly at their launch sites (counts zeroed just before,
+   read just after); then a ``Set`` and every query again;
+12. K3 timing on the inputs of one real flush of step 7, K2 timing on
    step 5's pools, K4 on the fused TopN's inputs and K5 on one shard's
-   GroupBy level-1 inputs, both recorded from step 9 (CUDA events around
-   each launch, L2 flushed before each), beside their plain versions and
-   their bounds.
+   GroupBy level-1 inputs, both recorded from step 9, K6 on a range
+   Count's inputs and K1 on a filtered Sum's, both recorded from step 11
+   (CUDA events around each launch, L2 flushed before each), beside their
+   plain versions and their bounds.
 
 Latencies are host-clock times; each is reported as the median with its
 10th and 90th percentiles and the sample count.
@@ -111,6 +129,11 @@ SCAN_ROWS = 64  # rows of s and of u
 QUERY_RUNS = 30  # warm runs of each TopN / Rows / GroupBy query
 FILL_BITS = 10  # the scan fields' fills are multiples of 2^-10
 SCAN_COLUMN = (7, 12345)  # Rows(s, column=...): shard 7, offset 12345
+BSI_MIN, BSI_MAX, BSI_DEPTH = -1_000_000, 1_000_000, 20  # int field v
+BSI_FILL = 7  # of 10 columns hold a value
+BSI_NEG = 3  # of 10 values are negative
+BSI_IMPORT_VALUES = 3000  # values that also go through /import-value
+BSI_SET = (5, 4321, 123)  # Set(col, v=123) at shard 5, offset 4321
 
 _OPS = {"and": "Intersect", "or": "Union", "andnot": "Difference",
         "xor": "Xor"}
@@ -213,7 +236,7 @@ def phase_header(torch) -> dict:
 
 
 KERNEL_SOURCES = ("gathered_count_and", "vm_counts", "row_counts_masked",
-                  "masked_matrix_counts")
+                  "masked_matrix_counts", "bsi_compare", "count_and")
 
 
 def phase_build(nvcc_build) -> None:
@@ -1155,6 +1178,385 @@ def phase_k2_time(torch, ck, bm, probe, card: dict) -> dict:
                           for k, v in k2.items()}}
 
 
+# -------------------------------------------------------------- K6 and K1
+
+
+def phase_k6_check(torch, ck, dev, seed: int, words: int) -> int:
+    """K6 against its plain version on the card; returns max |err|.
+    Depths 1, 20 and 63 (predicate bits in the high limb), predicates 0,
+    2^depth - 1 and past 2^depth (the unsigned entry's early-out), a
+    width that is not a multiple of 4 words, S = 1, and the BSI path's
+    stack shape."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 6)
+
+    def words_of(shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
+                             device=dev, generator=g)
+
+    cases = [(f"d{d}s{sh}w{w}", d, sh, w) for d in (1, 20, 63)
+             for sh, w in ((1, 2099), (3, 2048), (1, 7))]
+    cases.append(("path", BSI_DEPTH, N_SHARDS, words))
+    worst = 0
+    for label, depth, shards, w in cases:
+        planes = words_of((shards, 2 + depth, w))
+        planes[:, :, 0] = -1
+        cons = words_of((shards, w))
+        preds = (0, 1, 2 ** depth - 1, (2 ** depth - 1) // 3, 2 ** depth)
+        for upred in preds:
+            for unsigned in (False, True):
+                fn = ck.bsi_compare_unsigned if unsigned else ck.bsi_compare
+                got = fn(planes, cons, upred, depth)
+                torch.cuda.synchronize()
+                if not unsigned:
+                    want = ck.bsi_compare_plain(planes, cons, upred, depth)
+                elif upred < 2 ** depth:
+                    want = ck.bsi_compare_plain(planes, cons, upred, depth,
+                                                form=True)
+                else:  # above every value: all considered columns are lt
+                    want = (planes[:, 0] & ~planes[:, 1] & cons,
+                            torch.zeros_like(cons))
+                err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs()
+                              .max()) for a, b in zip(got, want))
+                worst = max(worst, err)
+                check(err == 0 and all(torch.equal(a, b)
+                                       for a, b in zip(got, want)),
+                      f"K6 differs from its plain version ({label}, upred "
+                      f"{upred}, unsigned {unsigned})")
+        log(f"K6 check {label}: S={shards} depth={depth} W={w}, predicates "
+            f"{preds}, general and unsigned entries, max_abs_err {worst}")
+    return worst
+
+
+def phase_k1_check(torch, ck, dev, seed: int, words: int) -> int:
+    """K1 against its plain version on the card; returns max |err|.
+    Lengths that are not a multiple of the block, all-ones inputs, a
+    plane of a stack (strided rows), a misaligned base, the BSI path's
+    shape, and 2^26 all-ones words, whose 2^31 bits need the int64
+    accumulator."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    worst = 0
+    for n in (1, 2047, 2049, 100003, 1 << 20):
+        a = torch.randint(-2 ** 31, 2 ** 31, (n,), dtype=torch.int32,
+                          device=dev, generator=g)
+        b = torch.randint(-2 ** 31, 2 ** 31, (n,), dtype=torch.int32,
+                          device=dev, generator=g)
+        ones = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        for label, x, y in (("random", a, b), ("ones", ones, ones),
+                            ("misaligned", a[1:], b[1:])):
+            err = abs(ck.count_and(x, y) - ck.count_and_plain(x, y))
+            worst = max(worst, err)
+            check(err == 0, f"K1 differs from its plain version (n={n}, "
+                            f"{label})")
+    planes = torch.randint(-2 ** 31, 2 ** 31, (N_SHARDS, 2 + BSI_DEPTH,
+                                               words), dtype=torch.int32,
+                           device=dev, generator=g)
+    filt = planes[:, 3].contiguous()
+    err = abs(ck.count_and(planes[:, 0], filt)
+              - ck.count_and_plain(planes[:, 0], filt))
+    worst = max(worst, err)
+    check(err == 0, "K1 differs from its plain version (a plane of the "
+                    "path's stack)")
+    ones = torch.full((1 << 26,), -1, dtype=torch.int32, device=dev)
+    big = ck.count_and(ones, ones)
+    check(big == 1 << 31, f"K1 counted {big} of 2^31 bits")
+    log(f"K1 check: lengths 1, 2047, 2049, 100003, 2^20 (random, all ones, "
+        f"misaligned), a strided plane of [{N_SHARDS}, {2 + BSI_DEPTH}, "
+        f"{words}], 2^26 all-ones words = {big} bits; max_abs_err {worst}")
+    return worst
+
+
+def bsi_data(seed: int, n_shards: int, width: int) -> dict:
+    """The int field's values, made from the seed: about BSI_FILL/10 of
+    the columns hold one, BSI_NEG/10 of those negative, magnitudes
+    uniform in [0, 10^6], with 0 and both bounds present.  ``vals``
+    int32 and ``exists`` bool over all columns."""
+    rng = np.random.default_rng(seed + 11)
+    n = n_shards * width
+    exists = rng.integers(0, 10, size=n, dtype=np.uint8) < BSI_FILL
+    vals = rng.integers(0, BSI_MAX + 1, size=n, dtype=np.int32)
+    neg = rng.integers(0, 10, size=n, dtype=np.uint8) < BSI_NEG
+    np.negative(vals, out=vals, where=neg)
+    for col, v in ((3, 0), (width + 17, BSI_MAX), (2 * width + 9, BSI_MIN),
+                   (n - 1, BSI_MIN), (n - 2, BSI_MAX)):
+        exists[col], vals[col] = True, v
+    vals[~exists] = 0
+    return {"vals": vals, "exists": exists}
+
+
+def bsi_planes(data: dict, n_shards: int, width: int) -> np.ndarray:
+    """uint32 [n_shards, 2 + BSI_DEPTH, width / 32]: exists, sign and the
+    magnitude bits of base-relative values (base 0), built in threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    out = np.empty((n_shards, 2 + BSI_DEPTH, width // 32), dtype=np.uint32)
+
+    def shard(s):
+        sl = slice(s * width, (s + 1) * width)
+        e, v = data["exists"][sl], data["vals"][sl]
+        mag = np.abs(v).astype(np.uint32)
+        rows = [e, e & (v < 0)] + [((mag >> np.uint32(i)) & np.uint32(1))
+                                   .astype(bool) for i in range(BSI_DEPTH)]
+        for p, r in enumerate(rows):
+            out[s, p] = np.packbits(r, bitorder="little").view(np.uint32)
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(shard, range(n_shards)))
+    return out
+
+
+def bsi_oracles(data: dict, f1: np.ndarray, width: int) -> dict:
+    """The numpy answers of the BSI path's queries on the int64 values;
+    ``f1`` is field f's row 1 as bool over all columns."""
+    e = data["exists"]
+    v = data["vals"].astype(np.int64)
+    ef = e & f1
+
+    def count(mask) -> int:
+        return int(np.count_nonzero(mask))
+
+    def extreme(mask, fn) -> dict:
+        x = fn(v[mask])
+        return {"value": int(x), "count": count(mask & (v == x))}
+
+    s5 = slice(5 * width, 6 * width)
+    return {
+        "gt1000": count(e & (v > 1000)),
+        "lt_5000": count(e & (v < -5000)),
+        "eq77": count(e & (v == 77)),
+        "ne77": count(e & (v != 77)),
+        "notnull": count(e),
+        "between": count(e & (v > -100) & (v < 100000)),
+        "out_of_range": 0,
+        "f1_gt1000": count(ef & (v > 1000)),
+        "row_shard5": {"columns": (np.flatnonzero(
+            e[s5] & (v[s5] > 999000)) + 5 * width).tolist()},
+        "sum": {"value": int(v[e].sum()), "count": count(e)},
+        "sum_f1": {"value": int(v[ef].sum()), "count": count(ef)},
+        "min": extreme(e, np.min),
+        "max_f1": extreme(ef, np.max),
+    }
+
+
+#: (label, PQL, URL flags, K6, K4, K1 launches per run) of the BSI path
+BSI_QUERIES = (
+    ("gt1000", "Count(Row(v > 1000))", "", 1, 0, 0),
+    ("lt_5000", "Count(Row(v < -5000))", "", 1, 0, 0),
+    ("eq77", "Count(Row(v == 77))", "", 1, 0, 0),
+    ("ne77", "Count(Row(v != 77))", "", 1, 0, 0),
+    ("notnull", "Count(Row(v != null))", "", 0, 0, 0),
+    ("between", "Count(Row(-100 < v < 100000))", "", 2, 0, 0),
+    ("out_of_range", "Count(Row(v >= 2000000))", "", 0, 0, 0),
+    ("f1_gt1000", "Count(Intersect(Row(f=1), Row(v > 1000)))", "", 1, 0, 0),
+    ("row_shard5", "Row(v > 999000)", "?shards=5", 1, 0, 0),
+    ("sum", "Sum(field=v)", "", 0, 2, 0),
+    ("sum_f1", "Sum(Row(f=1), field=v)", "", 0, 2, 1),
+    ("min", "Min(field=v)", "", 0, 0, 0),
+    ("max_f1", "Max(Row(f=1), field=v)", "", 0, 0, 0),
+)
+
+
+def run_bsi_queries(ck, http: Http, wants: dict, runs: int, out: dict,
+                    tag: str = "") -> None:
+    """Each BSI query ``runs`` times, every answer equal to the oracle
+    and K6 / K4 / K1 launched exactly at their launch sites."""
+    for label, pql, flags, k6_per, k4_per, k1_per in BSI_QUERIES:
+        k0 = ck.launch_counts()
+        lat = []
+        for _ in range(runs):
+            res, ms = http.query(pql, flags)
+            lat.append(ms)
+            check(res == [wants[label]], f"{pql}{flags}{tag}: differs from "
+                                         f"the oracle: {str(res)[:300]}")
+        k1 = ck.launch_counts()
+        got = {k: k1[k] - k0[k] for k in k1}
+        check(got["bsi_compare"] == k6_per * runs
+              and got["row_counts_masked"] == k4_per * runs
+              and got["count_and"] == k1_per * runs,
+              f"{pql}{flags}{tag}: launches {got} in {runs} runs")
+        check(got["gathered_count_and"] == got["vm_counts"]
+              == got["masked_matrix_counts"] == 0,
+              f"{pql}{flags}{tag}: K2, K3 or K5 launched: {got}")
+        entry = {"pql": pql + flags, "first_ms": lat[0], "k6": got[
+            "bsi_compare"], "k4": got["row_counts_masked"],
+                 "k1": got["count_and"]}
+        if runs > 1:
+            entry["warm_ms"] = spread(lat[1:])
+        out[label + tag] = entry
+        log(f"{label}{tag}: {pql}{flags} = oracle; K6 {entry['k6']}, K4 "
+            f"{entry['k4']}, K1 {entry['k1']} launches; first "
+            f"{lat[0]:.2f} ms" + (f", warm over HTTP {fmt(entry['warm_ms'])}"
+                                  if runs > 1 else ""))
+
+
+def phase_bsi(ck, http: Http, roaring, data: dict, cpr: int, words: int,
+              seed: int) -> dict:
+    """The int field v on all shards: planes imported through
+    import-roaring into its BSI view, a few thousand values through
+    /import-value; every query once cold and QUERY_RUNS times warm, every
+    answer equal to the numpy oracle and K6 / K4 / K1 launched exactly at
+    their launch sites; then a Set and every query again.  Returns the
+    measurements and, in ``probes``, K6's and K1's inputs recorded from
+    one more run of the path's queries."""
+    import base64
+
+    width = words * 32
+    t0 = time.perf_counter()
+    bsi = bsi_data(seed, N_SHARDS, width)
+    planes = bsi_planes(bsi, N_SHARDS, width)
+    log(f"bsi data: {int(bsi['exists'].sum())} values on {N_SHARDS} shards, "
+        f"planes {planes.shape} ({planes.nbytes} bytes), made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    opts = {"options": {"type": "int", "min": BSI_MIN, "max": BSI_MAX,
+                        "base": 0, "bitDepth": BSI_DEPTH}}
+    check(http.post("/index/i/field/v", json.dumps(opts).encode())[0] == 200,
+          "create int field v")
+    t0 = time.perf_counter()
+    rows = {p: planes[:, p] for p in range(planes.shape[1])}
+    sent = 0
+    for s in range(N_SHARDS):
+        blob = roaring_payload(roaring, rows, s, cpr)
+        sent += len(blob)
+        body = json.dumps({"views": {"bsig_v": base64.b64encode(
+            blob).decode()}}).encode()
+        st, resp = http.post(f"/index/i/field/v/import-roaring/{s}", body)
+        check(st == 200, f"import-roaring v shard {s}: HTTP {st} {resp!r}")
+    log(f"import: field v, {N_SHARDS} roaring payloads of {planes.shape[1]} "
+        f"plane rows, {sent} bytes, in {time.perf_counter() - t0:.1f} s")
+    del rows, planes
+    rng = np.random.default_rng(seed + 13)
+    cols = rng.choice(N_SHARDS * width, size=BSI_IMPORT_VALUES,
+                      replace=False)
+    vals = rng.integers(BSI_MIN, BSI_MAX + 1, size=len(cols))
+    body = json.dumps({"columnIDs": cols.tolist(),
+                       "values": vals.tolist()}).encode()
+    st, resp = http.post("/index/i/field/v/import-value", body)
+    check(st == 200, f"import-value: HTTP {st} {resp!r}")
+    bsi["exists"][cols] = True
+    bsi["vals"][cols] = vals
+    t0 = time.perf_counter()
+    f1 = np.unpackbits(data["f"][1].view(np.uint8), bitorder="little"
+                       ).astype(bool)
+    wants = bsi_oracles(bsi, f1, width)
+    log(f"bsi oracles in {time.perf_counter() - t0:.1f} s")
+
+    out: dict = {"queries": {}}
+    # ---- the BSI path: counts zeroed just before, read just after
+    ck.reset_launch_counts()
+    run_bsi_queries(ck, http, wants, 1 + QUERY_RUNS, out["queries"])
+    # a Set moves one value; the plane stack follows the generation
+    col, val = BSI_SET[0] * width + BSI_SET[1], BSI_SET[2]
+    res, _ms = http.query(f"Set({col}, v={val})")
+    check(res == [True], f"Set({col}, v={val}) -> {res}")
+    bsi["exists"][col] = True
+    bsi["vals"][col] = val
+    wants = bsi_oracles(bsi, f1, width)
+    run_bsi_queries(ck, http, wants, 1, out["queries"], tag="_after_set")
+    out["launches"] = ck.launch_counts()
+    # ---- end of the BSI path
+    log(f"bsi path launches: {out['launches']}")
+
+    # K6's and K1's inputs on this path, for the timing phase, recorded
+    # where ops/bsi.py and the executor call them
+    from pilosa_tpu_torch.ops import bitmap as bm
+    from pilosa_tpu_torch.ops import bsi as bsi_ops
+
+    probes: dict = {}
+    real_k6, real_k1 = bsi_ops.compare, bm.popcount_and
+
+    def k6(planes, filt, lo, hi):
+        probes.setdefault("k6", (planes, filt.contiguous(),
+                                 int(lo) | int(hi) << 32,
+                                 planes.shape[-2] - bsi_ops.OFFSET_PLANE))
+        return real_k6(planes, filt, lo, hi)
+
+    def k1(a, b):
+        probes.setdefault("k1", (a, b))
+        return real_k1(a, b)
+
+    bsi_ops.compare, bm.popcount_and = k6, k1
+    try:
+        http.query("Count(Row(v > 1000))")
+        http.query("Sum(Row(f=1), field=v)")
+    finally:
+        bsi_ops.compare, bm.popcount_and = real_k6, real_k1
+    check(set(probes) == {"k6", "k1"}, f"recorded only {sorted(probes)}")
+    check(probes["k6"][0].shape == (N_SHARDS, 2 + BSI_DEPTH, words),
+          f"K6 ran on {tuple(probes['k6'][0].shape)}, not the whole stack")
+    out["probes"] = probes
+    return out
+
+
+def phase_k6_time(torch, ck, probe, card: dict) -> dict:
+    """K6 on the BSI path's own inputs: the plane stack over all shards
+    and the considered row of ``Count(Row(v > 1000))``."""
+    planes, cons, upred, depth = probe
+    got = ck._bsi_launch(planes, cons, upred, depth, False)
+    want = ck.bsi_compare_plain(planes, cons, upred, depth)
+    torch.cuda.synchronize()
+    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+              for a, b in zip(got, want))
+    check(err == 0, "K6 differs from its plain version on the path's inputs")
+    flush = torch.zeros(64 << 20, dtype=torch.int32, device=planes.device)
+    k6 = time_ms(torch, lambda: ck._bsi_launch(planes, cons, upred, depth,
+                                               False), TIMED_LAUNCHES, flush)
+    plain = time_ms(torch, lambda: ck.bsi_compare_plain(planes, cons, upred,
+                                                        depth),
+                    PLAIN_LAUNCHES, flush)
+    shards, _np, words = planes.shape
+    cells = shards * words
+    # bytes: the depth magnitude planes and the considered row read once,
+    # lt and gt written once (exists and sign are not read: the caller
+    # formed the considered row)
+    nbytes = (depth + 1) * cells * 4 + 2 * cells * 4
+    bytes_ms = nbytes / card["hbm_rate"] * 1e3
+    # six bitwise operations per word and plane
+    ops_ms = cells * depth * 6 * BITWISE_CYCLES / card["sm_cycles"] * 1e3
+    ms = k6["median"]
+    log(f"K6 timing: S={shards} depth={depth} W={words}, {nbytes} bytes; "
+        f"kernel {fmt(k6, 1e3, 'us')} ({nbytes / ms / 1e6:.1f} GB/s at the "
+        f"median), plain {fmt(plain, 1e3, 'us')}, bound "
+        f"{bytes_ms * 1e3:.2f} us by bytes, {ops_ms * 1e3:.2f} us by "
+        f"operations")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain["median"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "spread_us": {k: v * 1e3 if k != "n" else v
+                          for k, v in k6.items()}}
+
+
+def phase_k1_time(torch, ck, probe, card: dict) -> dict:
+    """K1 on the BSI path's own inputs: the exists plane of every shard
+    (strided rows of the plane stack) against ``Sum(Row(f=1),
+    field=v)``'s filter stack."""
+    a, b = probe
+    got = ck.count_and(a, b)
+    want = ck.count_and_plain(a, b)
+    err = abs(got - want)
+    check(err == 0, "K1 differs from its plain version on the path's inputs")
+    flush = torch.zeros(64 << 20, dtype=torch.int32, device=a.device)
+    k1 = time_ms(torch, lambda: ck._count_and_launch(a, b), TIMED_LAUNCHES,
+                 flush)
+    plain = time_ms(torch, lambda: ck.count_and_plain(a, b), PLAIN_LAUNCHES,
+                    flush)
+    words = a.numel()
+    nbytes = 2 * words * 4 + 8
+    bytes_ms = nbytes / card["hbm_rate"] * 1e3
+    ops_ms = words * K2_CYCLES_PER_WORD / card["sm_cycles"] * 1e3
+    ms = k1["median"]
+    log(f"K1 timing: {tuple(a.shape)} against {tuple(b.shape)} words, count "
+        f"{got}, {nbytes} bytes; kernel {fmt(k1, 1e3, 'us')} "
+        f"({nbytes / ms / 1e6:.1f} GB/s at the median), plain "
+        f"{fmt(plain, 1e3, 'us')}, bound {bytes_ms * 1e3:.2f} us by bytes, "
+        f"{ops_ms * 1e3:.2f} us by operations")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain["median"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "spread_us": {k: v * 1e3 if k != "n" else v
+                          for k, v in k1.items()}}
+
+
 def kernel_line(name, source, replaces, launches, err, timing) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -1167,7 +1569,8 @@ def kernel_line(name, source, replaces, launches, err, timing) -> dict:
 def run_paths(torch, ck, bm, containers, tape, Server, roaring,
               seed: int, card: dict) -> dict:
     """The server on cuda: the K2 path, the lone query, the coalesced
-    path, the scan path, then the timings on their own inputs."""
+    path, the scan path, the BSI path, then the timings on their own
+    inputs."""
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
     words = SHARD_WIDTH // 32
@@ -1202,12 +1605,16 @@ def run_paths(torch, ck, bm, containers, tape, Server, roaring,
         check("flush" in out["coalesced"], "no VM flush was recorded")
         out["scans"] = phase_scans(ck, bm, http, roaring, data, cpr, words,
                                    seed)
+        out["bsi"] = phase_bsi(ck, http, roaring, data, cpr, words, seed)
         out["k3"] = phase_k3_time(torch, ck, tape,
                                   out["coalesced"].pop("flush"), card)
         out["k2"] = phase_k2_time(torch, ck, bm, out.pop("probe"), card)
         probes = out["scans"].pop("probes")
         out["k4"] = phase_k4_time(torch, ck, bm, probes["k4"], card)
         out["k5"] = phase_k5_time(torch, ck, bm, probes["k5"], card)
+        probes = out["bsi"].pop("probes")
+        out["k6"] = phase_k6_time(torch, ck, probes["k6"], card)
+        out["k1"] = phase_k1_time(torch, ck, probes["k1"], card)
         return out
     finally:
         srv.close()
@@ -1251,6 +1658,10 @@ def main(argv: list[str] | None = None) -> int:
         k4_err = phase_k4_check(torch, ck, bm, dev, args.seed, words)
         phase = "K5 check"
         k5_err = phase_k5_check(torch, ck, bm, dev, args.seed, words)
+        phase = "K6 check"
+        k6_err = phase_k6_check(torch, ck, dev, args.seed, words)
+        phase = "K1 check"
+        k1_err = phase_k1_check(torch, ck, dev, args.seed, words)
         phase = "main paths"
         out = run_paths(torch, ck, bm, containers, tape, Server, roaring,
                         args.seed, card)
@@ -1264,8 +1675,11 @@ def main(argv: list[str] | None = None) -> int:
                     "k2_us": out["k2"]["spread_us"],
                     "k3_us": out["k3"]["spread_us"],
                     "k3_shape": out["k3"]["shape"],
+                    "bsi": out["bsi"],
                     "k4_us": out["k4"]["spread_us"],
-                    "k5_us": out["k5"]["spread_us"]}))
+                    "k5_us": out["k5"]["spread_us"],
+                    "k6_us": out["k6"]["spread_us"],
+                    "k1_us": out["k1"]["spread_us"]}))
     log(json.dumps({"kernels": [
         kernel_line("gathered_count_and",
                     "pilosa_tpu_torch/ops/csrc/gathered_count_and.cu",
@@ -1286,6 +1700,14 @@ def main(argv: list[str] | None = None) -> int:
                     "pilosa_tpu/ops/pallas_kernels.py:652",
                     out["scans"]["launches"]["masked_matrix_counts"],
                     max(k5_err, out["k5"]["max_abs_err"]), out["k5"]),
+        kernel_line("bsi_compare", "pilosa_tpu_torch/ops/csrc/bsi_compare.cu",
+                    "pilosa_tpu/ops/pallas_kernels.py:726",
+                    out["bsi"]["launches"]["bsi_compare"],
+                    max(k6_err, out["k6"]["max_abs_err"]), out["k6"]),
+        kernel_line("count_and", "pilosa_tpu_torch/ops/csrc/count_and.cu",
+                    "pilosa_tpu/ops/pallas_kernels.py:194",
+                    out["bsi"]["launches"]["count_and"],
+                    max(k1_err, out["k1"]["max_abs_err"]), out["k1"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["kind"],

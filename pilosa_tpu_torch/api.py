@@ -1,7 +1,8 @@
 """API facade: the actions the HTTP handler exposes, on one node.
 
 Port of the single-node part of pilosa_tpu/api.py: query, index and
-field creation, bit import and roaring import.  The cluster state
+field creation (set and int fields), bit import, value import and
+roaring import.  The cluster state
 machine, key translation and replica fan-out are not part of the port
 yet; the node is always NORMAL.
 """
@@ -66,9 +67,10 @@ class API:
         if idx.field(name) is not None:
             raise ConflictError(f"field already exists: {name}")
         options = options or FieldOptions()
-        if options.type != FieldType.SET or options.keys:
-            raise ApiError(f"only set fields without keys are supported by "
-                           f"this port yet, not {options.type!r}"
+        if options.type not in (FieldType.SET, FieldType.INT) or options.keys:
+            raise ApiError(f"only set and int fields without keys are "
+                           f"supported by this port yet, not "
+                           f"{options.type!r}"
                            + (" with keys" if options.keys else ""))
         return idx.create_field(name, options)
 
@@ -86,21 +88,44 @@ class API:
         if not clear:
             idx.import_existence(cols)
 
+    def import_values(self, index: str, field: str, cols, values,
+                      col_keys=None) -> None:
+        """Bulk BSI value import; imported columns join the existence
+        field (pilosa_tpu/api.py:339)."""
+        if col_keys:
+            raise ApiError("string keys are not supported by this port yet")
+        idx = self.index(index)
+        f = self.field(index, field)
+        cols, values = list(cols), list(values)
+        f.import_values(cols, values)
+        idx.import_existence(cols)
+
     def import_roaring(self, index: str, field: str, shard: int,
                        views: dict[str, bytes], clear: bool = False) -> None:
-        """Merge serialized roaring bitmaps into one shard's standard
-        view (pilosa_tpu/api.py:470).  The existence field is left as it
+        """Merge serialized roaring bitmaps into one shard's fragments
+        (pilosa_tpu/api.py:470): a set field's standard view (named
+        ``""`` or ``"standard"``), or an int field's BSI view
+        ``bsig_<field>``, whose rows are the planes (0 exists, 1 sign,
+        2.. magnitude bits of base-relative values, below the field's
+        bit depth).  The reference refuses roaring imports into int
+        fields; the port takes the BSI view's planes, so that a large
+        value set loads as whole rows.  The existence field is left as it
         is, as in the reference."""
         f = self.field(index, field)
-        if f.options.type != FieldType.SET:
-            raise ApiError("roaring import is only supported for set fields "
-                           "by this port")
+        if f.options.type == FieldType.SET:
+            allowed = ("", VIEW_STANDARD)
+        elif f.options.type == FieldType.INT:
+            allowed = (f.bsi_view_name,)
+        else:
+            raise ApiError("roaring import is only supported for set and "
+                           "int fields by this port")
         for vname in views:
-            if vname not in ("", VIEW_STANDARD):
-                raise ApiError(f"view {vname!r} is not supported by this "
-                               f"port yet")
-        for data in views.values():
-            f.import_roaring(shard, data, clear=clear)
+            if vname not in allowed:
+                raise ApiError(f"view {vname!r} of field {field!r} is not "
+                               f"supported by this port yet")
+        for vname, data in views.items():
+            f.import_roaring(shard, data, clear=clear,
+                             view=vname or VIEW_STANDARD)
 
     def state(self) -> str:
         return "NORMAL"

@@ -15,10 +15,20 @@ set that the fused executor reads:
 Both are cached in one plain per-field dict keyed on the fragments'
 ``(_uid, _gen)``; any write to a fragment makes its entries miss.  The
 TopN scan's operand, ``device_matrix_stack`` (every row of a shard set
-in one matrix), has a cache of its own with the reference's size cap.  The
-other field types (int, time, mutex, bool) are not part of the port yet:
-their options still load, so a data directory holding them opens, but
-the API refuses to create them.
+in one matrix), has a cache of its own with the reference's size cap.
+
+``int`` fields (pilosa_tpu/models/field.py:1279-1562, 1700-1780) keep
+their values as bit planes in the BSI view ``bsig_<field>``: writes
+(``set_value``, ``clear_value``, ``import_values``), per-shard reads
+(``sum``/``min``/``max``, ``range_op``/``range_between``/``not_null``,
+with the reference's predicate classification and its divergence at a
+GT exactly at the minimum), and the fused path's operands:
+``device_plane_stack`` (every shard's planes in one int32 [S, 2 + depth,
+words] tensor, cached in the same dict) and ``device_range_stack`` (a
+range row over the stack, one K6 launch per compare).  The other field
+types (time, mutex, bool) are not part of the port yet: their options
+still load, so a data directory holding them opens, but the API refuses
+to create them.
 """
 
 from __future__ import annotations
@@ -32,8 +42,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from pilosa_tpu_torch.models.view import VIEW_STANDARD, View
+from pilosa_tpu_torch.models.view import VIEW_BSI_PREFIX, VIEW_STANDARD, View
 from pilosa_tpu_torch.ops import bitmap as bm
+from pilosa_tpu_torch.ops import bsi as bsi_ops
 from pilosa_tpu_torch.ops import containers as ct
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
@@ -57,6 +68,21 @@ _INTERNAL_NAME_RE = re.compile(r"^_[a-z0-9_-]{0,63}$")
 def validate_name(name: str) -> None:
     if not (_NAME_RE.match(name) or _INTERNAL_NAME_RE.match(name)):
         raise ValueError(f"invalid name: {name!r}")
+
+
+def bsi_base(lo: int, hi: int) -> int:
+    """Default base for an int field's range (reference bsiBase,
+    field.go:1551-1559)."""
+    if lo > 0:
+        return lo
+    if hi < 0:
+        return hi
+    return 0
+
+
+def bit_depth(uvalue: int) -> int:
+    """Bits needed for a magnitude, minimum 1."""
+    return max(int(uvalue).bit_length(), 1)
 
 
 def atomic_write_json(path: str, obj) -> None:
@@ -117,6 +143,22 @@ class FieldOptions:
             no_standard_view=d.get("noStandardView", False),
             keys=d.get("keys", False),
         )
+
+    @classmethod
+    def int_field(cls, lo: int, hi: int) -> "FieldOptions":
+        """An int field over [lo, hi] with the reference's base and
+        depth (pilosa_tpu/models/field.py:198-207)."""
+        if lo > hi:
+            raise ValueError("int field min cannot be greater than max")
+        if lo < -(1 << 63) or hi >= (1 << 63):
+            raise ValueError("int field range must fit in int64")
+        base = bsi_base(lo, hi)
+        depth = bit_depth(max(abs(lo - base), abs(hi - base)))
+        if depth > 63:
+            raise ValueError("int field range spans more than 63 bits from "
+                             "base")
+        return cls(type=FieldType.INT, min=lo, max=hi, base=base,
+                   bit_depth=depth)
 
 
 class Field:
@@ -193,6 +235,10 @@ class Field:
         return not (o.type == FieldType.INT
                     or (o.type == FieldType.TIME and o.no_standard_view))
 
+    @property
+    def bsi_view_name(self) -> str:
+        return VIEW_BSI_PREFIX + self.name
+
     def view(self, name: str) -> View | None:
         return self.views.get(name)
 
@@ -267,10 +313,10 @@ class Field:
         finally:
             self._note_shards(done)
 
-    def import_roaring(self, shard: int, data: bytes,
-                       clear: bool = False) -> None:
-        view = self.create_view_if_not_exists(VIEW_STANDARD)
-        view.create_fragment_if_not_exists(shard).import_roaring(data, clear)
+    def import_roaring(self, shard: int, data: bytes, clear: bool = False,
+                       view: str = VIEW_STANDARD) -> None:
+        v = self.create_view_if_not_exists(view)
+        v.create_fragment_if_not_exists(shard).import_roaring(data, clear)
         self._note_shards((shard,))
 
     # ------------------------------------------------------- device forms
@@ -402,6 +448,315 @@ class Field:
                     next(iter(self._matrix_stack_cache)))
             self._matrix_stack_cache[key] = entry
         return entry
+
+    # ------------------------------------------------------------ BSI
+
+    def _require_int(self) -> None:
+        if self.options.type != FieldType.INT:
+            raise ValueError(f"field {self.name} is not an int field")
+
+    def _bsi_fragment(self, shard: int):
+        view = self.view(self.bsi_view_name)
+        return None if view is None else view.fragment(shard)
+
+    def set_value(self, col: int, value: int) -> bool:
+        """(reference Field.SetValue, field.go:1075): range-checked,
+        base-relative, the depth grown (and saved) when a value needs
+        more bits."""
+        self._require_int()
+        o = self.options
+        if value < o.min:
+            raise ValueError(f"value {value} below field minimum {o.min}")
+        if value > o.max:
+            raise ValueError(f"value {value} above field maximum {o.max}")
+        base_value = value - o.base
+        required = bit_depth(abs(base_value))
+        if required > 63:
+            raise ValueError("value is more than 63 bits from the field base")
+        if required > o.bit_depth:
+            with self._lock:
+                o.bit_depth = required
+                self.save_meta()
+        view = self.create_view_if_not_exists(self.bsi_view_name)
+        changed = view.set_value(col, o.bit_depth, base_value)
+        self._note_shards((col // SHARD_WIDTH,))
+        return changed
+
+    def value(self, col: int) -> tuple[int, bool]:
+        """(reference Field.Value, field.go:1053)"""
+        self._require_int()
+        view = self.view(self.bsi_view_name)
+        if view is None:
+            return 0, False
+        v, ok = view.value(col, self.options.bit_depth)
+        if not ok:
+            return 0, False
+        return v + self.options.base, True
+
+    def clear_value(self, col: int) -> bool:
+        self._require_int()
+        frag = self._bsi_fragment(col // SHARD_WIDTH)
+        return (False if frag is None
+                else frag.clear_value(col, self.options.bit_depth))
+
+    def _filter_segment(self, filter_row, shard: int):
+        """(skip, words): a filter row's segment of one shard; skip when
+        there is a filter and the shard has no bits in it."""
+        if filter_row is None:
+            return False, None
+        fw = filter_row.shard_segment(shard)
+        return fw is None, fw
+
+    def sum(self, filter_row, shard: int) -> tuple[int, int]:
+        """Per-shard (sum, count) with the base added back (reference
+        Field.Sum, field.go:1121: sum + count*base)."""
+        self._require_int()
+        frag = self._bsi_fragment(shard)
+        skip, fw = self._filter_segment(filter_row, shard)
+        if frag is None or skip:
+            return 0, 0
+        s, c = frag.sum(fw, self.options.bit_depth)
+        return s + c * self.options.base, c
+
+    def _extreme(self, which: str, filter_row, shard: int):
+        self._require_int()
+        frag = self._bsi_fragment(shard)
+        skip, fw = self._filter_segment(filter_row, shard)
+        if frag is None or skip:
+            return None
+        v, c = getattr(frag, which)(fw, self.options.bit_depth)
+        if c == 0:
+            return None
+        return v + self.options.base, c
+
+    def min(self, filter_row, shard: int):
+        return self._extreme("min", filter_row, shard)
+
+    def max(self, filter_row, shard: int):
+        return self._extreme("max", filter_row, shard)
+
+    @property
+    def bit_depth_min(self) -> int:
+        """(reference bitDepthMin, field.go:1636)"""
+        return self.options.base - (1 << self.options.bit_depth) + 1
+
+    @property
+    def bit_depth_max(self) -> int:
+        """(reference bitDepthMax, field.go:1641)"""
+        return self.options.base + (1 << self.options.bit_depth) - 1
+
+    def base_value(self, op: str, value: int) -> tuple[int, bool]:
+        """An absolute predicate made base-relative, with out-of-range
+        detection (reference bsiGroup.baseValue, field.go:1583-1612).
+        Kept from pilosa_tpu/models/field.py:1428-1452, divergence
+        included: a GT predicate exactly at the representable minimum
+        keeps its true base value rather than clamping to 0 (the
+        reference's `value > min` guard turns `> min` into `> base`,
+        dropping every negative; untested upstream)."""
+        lo, hi = self.bit_depth_min, self.bit_depth_max
+        base = self.options.base
+        if op in (">", ">="):
+            if value > hi:
+                return 0, True  # nothing can exceed the representable max
+            return max(value, lo) - base, False
+        if op in ("<", "<="):
+            if value < lo:
+                return 0, True  # nothing can undercut the representable min
+            return min(value, hi) - base, False
+        if op in ("==", "!="):
+            if value < lo or value > hi:
+                return 0, True
+            return value - base, False
+        raise ValueError(f"invalid range operator: {op}")
+
+    def base_value_between(self, lo_v: int, hi_v: int
+                           ) -> tuple[int, int, bool]:
+        """(reference baseValueBetween, field.go:1614-1628)"""
+        lo, hi = self.bit_depth_min, self.bit_depth_max
+        if hi_v < lo or lo_v > hi:
+            return 0, 0, True
+        lo_v = max(lo_v, lo)
+        hi_v = min(hi_v, hi)
+        return lo_v - self.options.base, hi_v - self.options.base, False
+
+    def _classify_range(self, op: str, value):
+        """Shard-independent predicate preprocessing shared by the
+        per-shard and fused range paths (executor.go:1616-1661): one of
+        ("empty",), ("not_null",), ("op", op, base_pred) or ("between",
+        blo, bhi)."""
+        o = self.options
+        if op == "><":
+            lo_v, hi_v = value
+            blo, bhi, out_of_range = self.base_value_between(lo_v, hi_v)
+            if out_of_range:
+                return ("empty",)
+            if lo_v <= o.min and hi_v >= o.max:
+                return ("not_null",)
+            return ("between", blo, bhi)
+        if value is None:
+            if op == "!=":
+                return ("not_null",)
+            raise ValueError("EQ null condition is not supported")
+        predicate = value
+        base_pred, out_of_range = self.base_value(op, predicate)
+        if out_of_range and op != "!=":
+            return ("empty",)
+        if (
+            (op == "<" and predicate > o.max)
+            or (op == "<=" and predicate >= o.max)
+            or (op == ">" and predicate < o.min)
+            or (op == ">=" and predicate <= o.min)
+        ):
+            return ("not_null",)
+        if out_of_range:  # op is "!="
+            return ("not_null",)
+        return ("op", op, base_pred)
+
+    def _range_shard(self, op: str, value, shard: int):
+        self._require_int()
+        frag = self._bsi_fragment(shard)
+        if frag is None:
+            return None
+        plan = self._classify_range(op, value)
+        depth = self.options.bit_depth
+        if plan[0] == "empty":
+            return None
+        if plan[0] == "not_null":
+            return frag.not_null(depth)
+        if plan[0] == "between":
+            return frag.range_between(depth, plan[1], plan[2])
+        return frag.range_op(plan[1], depth, plan[2])
+
+    def range_op(self, op: str, predicate: int, shard: int):
+        """Per-shard BSI comparison in absolute value space -> int32
+        words on the device, or None."""
+        return self._range_shard(op, predicate, shard)
+
+    def range_between(self, lo_v: int, hi_v: int, shard: int):
+        return self._range_shard("><", [lo_v, hi_v], shard)
+
+    def not_null(self, shard: int):
+        self._require_int()
+        frag = self._bsi_fragment(shard)
+        return (None if frag is None
+                else frag.not_null(self.options.bit_depth))
+
+    def device_plane_stack(self, shards: tuple[int, ...]) -> torch.Tensor:
+        """Every shard's BSI planes as one int32 [n_shards, 2 + depth,
+        words] tensor on the field's device (exists, sign, then the
+        magnitude planes; missing fragments and rows zero), the fused
+        aggregates' and range rows' operand
+        (pilosa_tpu/models/field.py:1279-1327).  Cached like
+        ``device_row_stack``."""
+        self._require_int()
+        depth = self.options.bit_depth
+        view = self.view(self.bsi_view_name)
+        frags = [None if view is None else view.fragment(s) for s in shards]
+        gens = tuple(_frag_gen(fr) for fr in frags)
+        n_planes = bsi_ops.OFFSET_PLANE + depth
+
+        def build() -> torch.Tensor:
+            stack = np.zeros((len(shards), n_planes,
+                              bm.n_words(SHARD_WIDTH)), dtype=np.uint32)
+            for i, frag in enumerate(frags):
+                if frag is None:
+                    continue
+                with frag._lock:
+                    for p in range(n_planes):
+                        arr = frag._rows.get(p)
+                        if arr is not None:
+                            stack[i, p] = arr
+            return bm.to_tensor(stack, self.device)
+
+        return self._cached(("planes", shards, depth), gens, build)
+
+    def device_range_stack(self, op: str, value, shards: tuple[int, ...]
+                           ) -> torch.Tensor:
+        """The stacked range row int32 [n_shards, words]: op '><' takes
+        [lo, hi], op '!=' with value None means not-null
+        (pilosa_tpu/models/field.py:1521-1562).  Each compare is one K6
+        launch over every shard."""
+        self._require_int()
+        P = self.device_plane_stack(shards)
+        plan = self._classify_range(op, value)
+        if plan[0] == "empty":
+            return torch.zeros((P.shape[0], P.shape[2]), dtype=torch.int32,
+                               device=P.device)
+        if plan[0] == "not_null":
+            return P[:, bsi_ops.EXISTS_PLANE].contiguous()
+        if plan[0] == "between":
+            return bsi_ops.between_words(P, plan[1], plan[2])
+        return bsi_ops.range_words(P, plan[1], plan[2])
+
+    def import_values(self, cols, values) -> None:
+        """Bulk import of BSI values: one set/clear position batch per
+        shard (reference Field.importValue, field.go:1284-1345;
+        pilosa_tpu/models/field.py:1700).  Floats raise TypeError and
+        values outside [min, max] ValueError."""
+        self._require_int()
+        if not isinstance(cols, np.ndarray):
+            cols = list(cols)
+        if not isinstance(values, np.ndarray):
+            values = list(values)
+        if len(cols) != len(values):
+            raise ValueError("columns and values length mismatch")
+        if len(cols) == 0:
+            return
+        o = self.options
+        cols_np = np.asarray(cols, dtype=np.int64)
+        if cols_np.min() < 0:
+            raise ValueError("negative column id in import")
+        raw = values if isinstance(values, np.ndarray) else np.asarray(values)
+        if np.issubdtype(raw.dtype, np.floating):
+            raise TypeError("BSI values must be integers")
+        if raw.dtype == object:
+            # mixed or big ints: range-check in Python first
+            for v in raw.tolist():
+                if not isinstance(v, int):
+                    raise TypeError("BSI values must be integers")
+                if v < o.min or v > o.max:
+                    raise ValueError(f"value {v} outside field range "
+                                     f"[{o.min}, {o.max}]")
+            vals_np = np.asarray(raw.tolist(), dtype=np.int64)
+        else:
+            vals_np = raw.astype(np.int64, copy=False)
+        bad = vals_np[(vals_np < o.min) | (vals_np > o.max)]
+        if len(bad):
+            raise ValueError(f"value {int(bad[0])} outside field range "
+                             f"[{o.min}, {o.max}]")
+        bv = vals_np - o.base
+        uv = np.abs(bv)
+        required = bit_depth(int(uv.max()))
+        if required > o.bit_depth:
+            with self._lock:
+                o.bit_depth = required
+                self.save_meta()
+        depth = o.bit_depth
+        view = self.create_view_if_not_exists(self.bsi_view_name)
+        off = cols_np % SHARD_WIDTH
+        planes = np.arange(depth, dtype=np.int64)
+        done: set[int] = set()
+        try:
+            for shard, sel in bm.group_indices(cols_np // SHARD_WIDTH).items():
+                offs = off[sel]
+                bits = (uv[sel][:, None] >> planes[None, :]) & 1
+                pos = ((bsi_ops.OFFSET_PLANE + planes)[None, :]
+                       * SHARD_WIDTH + offs[:, None])
+                neg = bv[sel] < 0
+                sets = np.concatenate([
+                    pos[bits == 1],
+                    bsi_ops.EXISTS_PLANE * SHARD_WIDTH + offs,
+                    bsi_ops.SIGN_PLANE * SHARD_WIDTH + offs[neg],
+                ])
+                clears = np.concatenate([
+                    pos[bits == 0],
+                    bsi_ops.SIGN_PLANE * SHARD_WIDTH + offs[~neg],
+                ])
+                frag = view.create_fragment_if_not_exists(int(shard))
+                frag.import_positions(sets, clears)
+                done.add(int(shard))
+        finally:
+            self._note_shards(done)
 
     # ---------------------------------------------------------- lifecycle
 

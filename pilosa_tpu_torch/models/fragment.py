@@ -13,10 +13,20 @@ at a WAL-clean open and saved at snapshot, and its whole row matrix on
 its device (``device_matrix``), cached per generation, for the TopN and
 GroupBy scans.
 
-Left out: delta planes, BSI planes, time views and the background
-snapshot queue (snapshots here run inline, in one phase).  Device copies
-of rows across shards are built by the owning Field, keyed on this
-fragment's ``(_uid, _gen)``.
+A fragment of an int field's BSI view (``bsig_<field>``) holds the bit
+planes of its columns' base-relative values as rows 0 (exists), 1 (sign)
+and 2.. (magnitude bits), as in the reference
+(pilosa_tpu/models/fragment.py:1389-1567): ``set_value``/``clear_value``
+write them with the reference's WAL records, ``device_planes`` is the
+int32 [2 + depth, words] plane stack on the device, cached per
+generation, and ``sum``/``min``/``max``/``range_op``/``range_between``
+evaluate over it (ops/bsi.py: K6 for every compare, K4 for Sum's plane
+counts, K1 for a filtered Sum's count).
+
+Left out: delta planes, time views and the background snapshot queue
+(snapshots here run inline, in one phase).  Device copies of rows across
+shards are built by the owning Field, keyed on this fragment's ``(_uid,
+_gen)``.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import torch
 
 from pilosa_tpu_torch.models.cache import TopNCache
 from pilosa_tpu_torch.ops import bitmap as bm
+from pilosa_tpu_torch.ops import bsi as bsi_ops
 from pilosa_tpu_torch.ops import containers as ct
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 from pilosa_tpu_torch.storage import roaring as rcodec
@@ -83,6 +94,8 @@ class Fragment:
         self._container_cache: dict = {}
         # (gen, row_ids, int32 [R, words] tensor on the device)
         self._matrix_cache: tuple | None = None
+        # (gen, depth, int32 [2 + depth, words] BSI planes on the device)
+        self._planes_cache: tuple | None = None
         self.topn_cache = TopNCache(cache_type, cache_size)
         self._wal = None
         self._op_n = 0
@@ -419,6 +432,15 @@ class Fragment:
 
     # -------------------------------------------------------- host queries
 
+    def bit(self, row: int, col: int) -> bool:
+        with self._lock:
+            off = self._offset(col)
+            arr = self._rows.get(row)
+            if arr is None:
+                return False
+            return bool((arr[off // bm.WORD_BITS] >> np.uint32(
+                off % bm.WORD_BITS)) & np.uint32(1))
+
     def row(self, row: int) -> np.ndarray:
         """Packed uint32 words for one row (copy)."""
         with self._lock:
@@ -520,3 +542,155 @@ class Fragment:
         with self._lock:
             ids, dev = self.device_matrix()
             return self._gen, ids, dev
+
+    # -------------------------------------------------------------- BSI
+
+    def device_planes(self, depth: int) -> torch.Tensor:
+        """The BSI plane stack int32 [2 + depth, words] on the fragment's
+        device (rows 0..depth+1, absent rows zero), cached per
+        generation and depth."""
+        with self._lock:
+            hit = self._planes_cache
+            if hit is not None and hit[0] == self._gen and hit[1] == depth:
+                return hit[2]
+            P = np.zeros((bsi_ops.OFFSET_PLANE + depth, self.n_words),
+                         dtype=np.uint32)
+            for i in range(P.shape[0]):
+                arr = self._rows.get(i)
+                if arr is not None:
+                    P[i] = arr
+            dev = bm.to_tensor(P, self.device)
+            self._planes_cache = (self._gen, depth, dev)
+            return dev
+
+    def set_value(self, col: int, depth: int, value: int) -> bool:
+        """Write a base-relative signed value as bit planes, one WAL
+        record per plane, exists and sign (reference setValueBase,
+        fragment.go:977; pilosa_tpu/models/fragment.py:1457)."""
+        uvalue = -value if value < 0 else value
+        changed = False
+        off = self._offset(col)
+        with self._lock:
+            for i in range(depth):
+                plane = bsi_ops.OFFSET_PLANE + i
+                if (uvalue >> i) & 1:
+                    changed |= self._apply_set(plane, off)
+                    self._wal_append(_WAL_REC.pack(_WAL_SET, plane, off))
+                else:
+                    changed |= self._apply_clear(plane, off)
+                    self._wal_append(_WAL_REC.pack(_WAL_CLEAR, plane, off))
+                self._op_n += 1
+            changed |= self._apply_set(bsi_ops.EXISTS_PLANE, off)
+            self._wal_append(_WAL_REC.pack(_WAL_SET, bsi_ops.EXISTS_PLANE,
+                                           off))
+            if value < 0:
+                changed |= self._apply_set(bsi_ops.SIGN_PLANE, off)
+                self._wal_append(_WAL_REC.pack(_WAL_SET, bsi_ops.SIGN_PLANE,
+                                               off))
+            else:
+                changed |= self._apply_clear(bsi_ops.SIGN_PLANE, off)
+                self._wal_append(_WAL_REC.pack(_WAL_CLEAR,
+                                               bsi_ops.SIGN_PLANE, off))
+            self._op_n += 2
+            self._gen += 1
+            self._maybe_snapshot()
+        return changed
+
+    def clear_value(self, col: int, depth: int) -> bool:
+        """Clear the column's exists bit; the planes keep their bits, as
+        in the reference (pilosa_tpu/models/fragment.py:1487)."""
+        off = self._offset(col)
+        with self._lock:
+            changed = self._apply_clear(bsi_ops.EXISTS_PLANE, off)
+            if changed:
+                self._wal_append(_WAL_REC.pack(_WAL_CLEAR,
+                                               bsi_ops.EXISTS_PLANE, off))
+                self._op_n += 1
+                self._gen += 1
+        return changed
+
+    def value(self, col: int, depth: int) -> tuple[int, bool]:
+        """One column's base-relative value (reference fragment.value,
+        fragment.go:896)."""
+        if not self.bit(bsi_ops.EXISTS_PLANE, col):
+            return 0, False
+        v = 0
+        for i in range(depth):
+            if self.bit(bsi_ops.OFFSET_PLANE + i, col):
+                v |= 1 << i
+        if self.bit(bsi_ops.SIGN_PLANE, col):
+            v = -v
+        return v, True
+
+    def _consider(self, depth: int, filter_words):
+        """(P, consider, filter tensor or None): the planes, their exists
+        row under the filter, and the filter on the device."""
+        P = self.device_planes(depth)
+        if filter_words is None:
+            return P, P[bsi_ops.EXISTS_PLANE], None
+        filt = bm.to_tensor(filter_words, self.device)
+        return P, P[bsi_ops.EXISTS_PLANE] & filt, filt
+
+    def sum(self, filter_words, depth: int) -> tuple[int, int]:
+        """(base-relative sum, count): the plane counts (two K4 launches)
+        assembled in exact Python ints; with a filter the count is
+        |exists & filter| (K1) (reference fragment.sum,
+        fragment.go:1111)."""
+        P, consider, filt = self._consider(depth, filter_words)
+        pos, neg = bsi_ops.plane_counts(P, consider)
+        pos = pos.to("cpu").numpy()
+        neg = neg.to("cpu").numpy()
+        total = sum((int(p) - int(n)) << i
+                    for i, (p, n) in enumerate(zip(pos, neg)))
+        if filt is None:
+            count = bm.popcount(consider)
+        else:
+            count = bm.popcount_and(P[bsi_ops.EXISTS_PLANE], filt)
+        return total, count
+
+    def min(self, filter_words, depth: int) -> tuple[int, int]:
+        """(base-relative min, count) (reference fragment.min,
+        fragment.go:1147)."""
+        P, consider, _ = self._consider(depth, filter_words)
+        if bm.popcount(consider) == 0:
+            return 0, 0
+        negs = consider & P[bsi_ops.SIGN_PLANE]
+        if bm.popcount(negs) > 0:
+            taken, count = bsi_ops.extreme_max(P, negs)
+            return (-bsi_ops.assemble_value(taken.to("cpu").numpy()),
+                    int(count))
+        taken, count = bsi_ops.extreme_min(P, consider)
+        return bsi_ops.assemble_value(taken.to("cpu").numpy()), int(count)
+
+    def max(self, filter_words, depth: int) -> tuple[int, int]:
+        """(base-relative max, count) (reference fragment.max,
+        fragment.go:1191)."""
+        P, consider, _ = self._consider(depth, filter_words)
+        if bm.popcount(consider) == 0:
+            return 0, 0
+        pos = consider & ~P[bsi_ops.SIGN_PLANE]
+        if bm.popcount(pos) == 0:
+            taken, count = bsi_ops.extreme_min(P, consider)
+            return (-bsi_ops.assemble_value(taken.to("cpu").numpy()),
+                    int(count))
+        taken, count = bsi_ops.extreme_max(P, pos)
+        return bsi_ops.assemble_value(taken.to("cpu").numpy()), int(count)
+
+    def not_null(self, depth: int) -> torch.Tensor:
+        """The exists row on the device (reference notNull,
+        fragment.go:1460)."""
+        return self.device_planes(depth)[bsi_ops.EXISTS_PLANE]
+
+    def range_op(self, op: str, depth: int, predicate: int) -> torch.Tensor:
+        """BSI comparison -> int32 words on the device; op in
+        {'==','!=','<','<=','>','>='} (reference rangeOp,
+        fragment.go:1273), through bsi_ops.range_words, which the fused
+        path runs over whole stacks."""
+        return bsi_ops.range_words(self.device_planes(depth), op, predicate)
+
+    def range_between(self, depth: int, pred_min: int, pred_max: int
+                      ) -> torch.Tensor:
+        """BSI between [min, max] inclusive (reference rangeBetween,
+        fragment.go:1465), through bsi_ops.between_words."""
+        return bsi_ops.between_words(self.device_planes(depth), pred_min,
+                                     pred_max)

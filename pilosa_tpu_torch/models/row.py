@@ -36,6 +36,9 @@ class Row:
             return np.empty(0, dtype=np.int64)
         return np.concatenate(parts)
 
+    def shard_segment(self, shard: int) -> np.ndarray | None:
+        return self.segments.get(shard)
+
     def __eq__(self, other) -> bool:
         if not isinstance(other, Row):
             return NotImplemented

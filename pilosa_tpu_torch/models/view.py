@@ -1,9 +1,10 @@
 """View: one physical layout of a field, owning fragments by shard.
 
-Port of pilosa_tpu/models/view.py for the standard view: it routes bits
-to the fragment owning the column's shard and creates fragments on first
-write.  Fragment files live under ``<view>/fragments/<shard>.{snap,wal}``
-as in the reference.
+Port of pilosa_tpu/models/view.py for the standard view and an int
+field's BSI view (``bsig_<field>``): it routes bits and values to the
+fragment owning the column's shard and creates fragments on first write.
+Fragment files live under ``<view>/fragments/<shard>.{snap,wal}`` as in
+the reference.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from pilosa_tpu_torch.models.fragment import Fragment
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
 VIEW_STANDARD = "standard"
+VIEW_BSI_PREFIX = "bsig_"
 
 
 class View:
@@ -83,6 +85,14 @@ class View:
     def clear_bit(self, row: int, col: int) -> bool:
         frag = self.fragment(col // SHARD_WIDTH)
         return False if frag is None else frag.clear_bit(row, col)
+
+    def set_value(self, col: int, depth: int, value: int) -> bool:
+        return self.create_fragment_if_not_exists(
+            col // SHARD_WIDTH).set_value(col, depth, value)
+
+    def value(self, col: int, depth: int) -> tuple[int, bool]:
+        frag = self.fragment(col // SHARD_WIDTH)
+        return (0, False) if frag is None else frag.value(col, depth)
 
     def close(self) -> None:
         for frag in self.fragments.values():

@@ -19,9 +19,10 @@ launch names, so the launch-count accounting of ``dispatch_counter``
 holds across both packages.
 
 The TopN and GroupBy scans (``row_counts_masked``, ``row_counts_gathered``,
-``masked_matrix_counts``) go through the CUDA kernels K4 and K5 of
-ops/cuda_kernels.py, which launch on CUDA tensors and compute the plain
-versions here (``*_plain``) on CPU tensors.
+``masked_matrix_counts``) and the intersection count ``popcount_and`` go
+through the CUDA kernels K4, K5 and K1 of ops/cuda_kernels.py, which
+launch on CUDA tensors and compute the plain versions (``*_plain``) on
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -190,9 +191,13 @@ def popcount(a: torch.Tensor) -> int:
 
 
 def popcount_and(a: torch.Tensor, b: torch.Tensor) -> int:
-    """|a & b|."""
+    """|a & b| of two equal-shaped word tensors (rows may be strided):
+    the CUDA kernel K1 on the card, as the reference's ``count_and``
+    takes Pallas on a TPU, its plain version on the CPU."""
+    from pilosa_tpu_torch.ops import cuda_kernels as ck
+
     note_dispatch("popcount_and")
-    return int(popcount_elems(a & b).sum())
+    return ck.count_and(a, b)
 
 
 def row_counts(mat: torch.Tensor) -> torch.Tensor:

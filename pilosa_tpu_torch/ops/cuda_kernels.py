@@ -30,15 +30,34 @@ K5 -- ``masked_matrix_counts`` replaces the Pallas GroupBy count
 ops/csrc/masked_matrix_counts.cu.  It is bound by popcounts at GroupBy's
 shapes: G * R * W word pairs.
 
-All four sources are CUDA C++ for sm_90a, built by ops/nvcc_build.py at
+K6 -- ``bsi_compare`` replaces the Pallas BSI ripple ``_bsi_compare_kernel``
+/ ``_bsi_compare_pallas`` (pilosa_tpu/ops/pallas_kernels.py:700-757):
+per shard and word column, walk the magnitude planes of a bit-sliced
+integer stack from the most significant down against an unsigned
+predicate and return the considered columns strictly below (lt) and
+strictly above (gt) it, as int32[S, W] each.  ``bsi_compare_unsigned`` is
+the Pallas entry's function (:760-787): consider = exists & ~sign & filt,
+formed in the kernel, and the ``upred >= 2^depth`` early-out.  Source:
+ops/csrc/bsi_compare.cu.  It is bound by bytes: the depth planes and the
+considered row read once, lt and gt written once.
+
+K1 -- ``count_and`` replaces the Pallas intersection count
+``_count_and_kernel`` / ``_count_and_pallas`` (pilosa_tpu/ops/
+pallas_kernels.py:182-210): ``|a & b|`` over two equal-shaped word
+arrays, rows with a stride each, as a Python int summed in int64 on the
+card.  Source: ops/csrc/count_and.cu.  It is bound by bytes: both
+operands read once.
+
+All six sources are CUDA C++ for sm_90a, built by ops/nvcc_build.py at
 first use and bound with ctypes.  The wrappers take int32 word tensors
 (bit views of the reference's uint32 words).  On CUDA tensors they launch
 their kernel on the current stream, or raise -- a failed build or launch
 is never answered by the plain version.  On CPU tensors they compute the
 plain PyTorch version, which is how the CPU tests reach it:
 ``bitmap.gathered_pair_counts`` for K2, ``vm_counts_plain`` for K3,
-``bitmap.row_counts_masked_plain`` for K4 and
-``bitmap.masked_matrix_counts_plain`` for K5.  ``<wrapper>.launches``
+``bitmap.row_counts_masked_plain`` for K4,
+``bitmap.masked_matrix_counts_plain`` for K5, ``bsi_compare_plain`` for
+K6 and ``count_and_plain`` for K1.  ``<wrapper>.launches``
 counts kernel launches, process-wide, and nothing else.
 """
 
@@ -72,6 +91,11 @@ _ENTRIES = {
                           [_c, _c, _c, _c, _i, _ll, _i, _c]),
     "masked_matrix_counts": ("masked_matrix_counts_launch",
                              [_c, _c, _c, _i, _i, _ll, _c]),
+    "bsi_compare": ("bsi_compare_launch",
+                    [_c, _c, _c, _c, _i, _i, _ll, _i, ctypes.c_uint,
+                     ctypes.c_uint, _i, _i, _c]),
+    "count_and": ("count_and_launch", [_c, _ll, _c, _ll, _ll, _ll, _c, _i,
+                                       _c]),
 }
 #: widest matrix row whose popcount fits the kernels' int32 sums
 MAX_WORDS = 2 ** 26 - 1
@@ -419,10 +443,209 @@ def _mmc_launch(mat: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
 masked_matrix_counts.launches = 0
 
 
+# ------------------------------------------------------------------ K6
+
+#: widest predicate the kernel's two 32-bit limbs hold
+MAX_BSI_DEPTH = 64
+
+
+def _check_bsi(planes: torch.Tensor, cons: torch.Tensor, upred: int,
+               depth: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Types, layout and shapes of a K6 call -> (planes as [S, 2 + depth,
+    W], cons as [S, W]); a single fragment's [2 + depth, W] planes and
+    [W] row are viewed as S = 1."""
+    for name, t in (("planes", planes), ("cons", cons)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if cons.device != planes.device:
+        raise ValueError(f"cons is on {cons.device}, planes on "
+                         f"{planes.device}")
+    if not 0 <= depth <= MAX_BSI_DEPTH:
+        raise ValueError(f"depth {depth} outside 0..{MAX_BSI_DEPTH}")
+    if not 0 <= upred < 1 << 64:
+        raise ValueError(f"predicate magnitude {upred} outside the two "
+                         f"32-bit limbs")
+    if planes.dim() == 2:
+        planes = planes.unsqueeze(0)
+    if planes.dim() != 3 or planes.shape[1] != 2 + depth:
+        raise ValueError(f"planes must be [S, {2 + depth}, W], got "
+                         f"{tuple(planes.shape)}")
+    shards, _, words = planes.shape
+    if cons.dim() == 1:
+        cons = cons.unsqueeze(0)
+    if tuple(cons.shape) != (shards, words):
+        raise ValueError(f"cons must be [{shards}, {words}], got "
+                         f"{tuple(cons.shape)}")
+    if shards >= 2 ** 31:
+        raise ValueError("too many shards for one launch")
+    return planes, cons
+
+
+def bsi_compare_plain(planes: torch.Tensor, cons: torch.Tensor, upred: int,
+                      depth: int, form: bool = False
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of K6, the ripple in torch int32 bit ops:
+    ``(lt, gt)`` among ``cons`` (or exists & ~sign & cons with
+    ``form``) against the low ``depth`` bits of ``upred``.  Planes are
+    [..., 2 + depth, W], ``cons`` [..., W]."""
+    consider = cons
+    if form:
+        consider = planes[..., 0, :] & ~planes[..., 1, :] & cons
+    lt = torch.zeros_like(consider)
+    gt = torch.zeros_like(consider)
+    eq = consider
+    for i in range(depth - 1, -1, -1):
+        plane = planes[..., 2 + i, :]
+        if (upred >> i) & 1:
+            lt = lt | (eq & ~plane)
+            eq = eq & plane
+        else:
+            gt = gt | (eq & plane)
+            eq = eq & ~plane
+    return lt, gt
+
+
+def _bsi_launch(planes: torch.Tensor, cons: torch.Tensor, upred: int,
+                depth: int, form: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K6 on tensors already checked (3-D planes, 2-D cons) and
+    on one card."""
+    shards, nplanes, words = planes.shape
+    lt = torch.empty((shards, words), dtype=torch.int32,
+                     device=planes.device)
+    gt = torch.empty_like(lt)
+    if lt.numel() == 0:
+        return lt, gt
+    vec = (words % 4 == 0 and planes.data_ptr() % 16 == 0
+           and cons.data_ptr() % 16 == 0)
+    launch = _launcher("bsi_compare")
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream(planes.device).cuda_stream
+        rc = launch(planes.data_ptr(), cons.data_ptr(), lt.data_ptr(),
+                    gt.data_ptr(), shards, nplanes, words, depth,
+                    upred & 0xFFFFFFFF, (upred >> 32) & 0xFFFFFFFF,
+                    int(form), int(vec), stream)
+    if rc != 0:
+        raise RuntimeError(f"bsi_compare launch failed: CUDA error {rc}")
+    return lt, gt
+
+
+def _bsi(planes, cons, upred, depth, form):
+    squeeze = planes.dim() == 2
+    planes3, cons2 = _check_bsi(planes, cons, upred, depth)
+    if planes.device.type != "cuda":
+        lt, gt = bsi_compare_plain(planes3, cons2, upred, depth, form)
+    else:
+        lt, gt = _bsi_launch(planes3, cons2, upred, depth, form)
+        if lt.numel():
+            _count(bsi_compare)
+    if squeeze:
+        return lt[0], gt[0]
+    return lt, gt
+
+
+def bsi_compare(planes: torch.Tensor, cons: torch.Tensor, upred: int,
+                depth: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(lt, gt)`` int32[S, W]: the columns of ``cons`` whose magnitude
+    in ``planes`` (int32[S, 2 + depth, W], or one fragment's [2 + depth,
+    W] with a [W] row) is strictly below / above the low ``depth`` bits
+    of ``upred``.  One launch covers every shard.  CUDA tensors launch
+    K6; CPU tensors compute ``bsi_compare_plain``.  Ticks no dispatch:
+    the caller in ops/bsi.py owns it."""
+    return _bsi(planes, cons, upred, depth, False)
+
+
+def bsi_compare_unsigned(planes: torch.Tensor, filt: torch.Tensor,
+                         upred: int, depth: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Pallas entry's function (pilosa_tpu/ops/pallas_kernels.py:
+    760): ``(lt, gt)`` among the non-null, non-negative columns of
+    ``filt``, consider = exists & ~sign & filt formed in the kernel.  A
+    predicate of ``2^depth`` or more is above every value: all considered
+    columns are lt, with no launch."""
+    if upred < 0:
+        raise ValueError("predicate magnitude must be non-negative")
+    if upred >= 1 << depth:
+        planes3, filt2 = _check_bsi(planes, filt, 0, depth)
+        consider = planes3[:, 0] & ~planes3[:, 1] & filt2
+        if planes.dim() == 2:
+            consider = consider[0]
+        return consider, torch.zeros_like(consider)
+    return _bsi(planes, filt, upred, depth, True)
+
+
+bsi_compare.launches = 0
+
+
+# ------------------------------------------------------------------ K1
+
+
+def _check_count_and(a: torch.Tensor, b: torch.Tensor) -> None:
+    for name, t in (("a", a), ("b", b)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if t.dim() not in (1, 2):
+            raise ValueError(f"{name} must be [words] or [rows, words], got "
+                             f"{tuple(t.shape)}")
+        if t.numel() and t.stride(-1) != 1:
+            raise ValueError(f"{name}'s words must be contiguous")
+    if a.shape != b.shape:
+        raise ValueError(f"a is {tuple(a.shape)}, b {tuple(b.shape)}")
+    if a.device != b.device:
+        raise ValueError(f"a is on {a.device}, b on {b.device}")
+
+
+def count_and_plain(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The plain version of K1: the int64 SWAR popcount of ``a & b``,
+    summed."""
+    return int(bm.popcount_elems(a & b).sum())
+
+
+def _count_and_launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch K1 on tensors already checked and on one card -> the count
+    as an int64[1] tensor on the card."""
+    out = torch.zeros(1, dtype=torch.int64, device=a.device)
+    if a.numel() == 0:
+        return out
+    a2 = a if a.dim() == 2 else a.unsqueeze(0)
+    b2 = b if b.dim() == 2 else b.unsqueeze(0)
+    rows, words = a2.shape
+    sa, sb = a2.stride(0), b2.stride(0)
+    vec = (words % 4 == 0 and sa % 4 == 0 and sb % 4 == 0
+           and a2.data_ptr() % 16 == 0 and b2.data_ptr() % 16 == 0)
+    launch = _launcher("count_and")
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = launch(a2.data_ptr(), sa, b2.data_ptr(), sb, rows, words,
+                    out.data_ptr(), int(vec), stream)
+    if rc != 0:
+        raise RuntimeError(f"count_and launch failed: CUDA error {rc}")
+    return out
+
+
+def count_and(a: torch.Tensor, b: torch.Tensor) -> int:
+    """``|a & b|`` of two equal-shaped int32 word tensors ([words], or
+    [rows, words] with any row stride, such as one plane of a plane
+    stack), exact at any size.  CUDA tensors launch K1; CPU tensors
+    compute ``count_and_plain``.  Ticks no dispatch: the caller
+    (``bitmap.popcount_and``) owns it."""
+    _check_count_and(a, b)
+    if a.device.type != "cuda":
+        return count_and_plain(a, b)
+    out = _count_and_launch(a, b)
+    if a.numel():
+        _count(count_and)
+    return int(out.item())
+
+
+count_and.launches = 0
+
+
 # ------------------------------------------------------------- accounting
 
 _KERNELS = (gathered_count_and, vm_counts, row_counts_masked,
-            masked_matrix_counts)
+            masked_matrix_counts, bsi_compare, count_and)
 
 
 def launch_counts() -> dict[str, int]:

@@ -30,9 +30,20 @@ Unfiltered scans are plain torch row counts, answered from the
 fragments' TopN rank caches when those are warm.  The shards of one
 node are mapped one after another on the calling thread (``_local_map``).
 
+Int fields (executor.py:1011-1027, 1617-1632, 2398-2537, 2815-2885):
+``Set``/``Clear`` with a value write the field's BSI planes, a condition
+row (``Row(v > 10)``, ``Row(-5 < v < 5)``, ``Row(v != null)``) is a range
+leaf -- over all shards one K6 launch per compare over the field's plane
+stack, else per shard -- and ``Sum``/``Min``/``Max`` aggregate over the
+plane stack: fused over all shards when the filter child (if any) is
+fused-supported, else shard by shard.  A filtered Sum's count is K1.
+The container engine and the VM decline trees with range leaves, so
+their Counts take the dense stacks (and the coalescer's dense buckets),
+as in the reference.
+
 Not part of the port yet: the result cache, the cluster fan-out, ingest
 deltas, string keys, attributes, time views and the other calls
-(Sum/Min/Max, BSI, Shift, Store, ClearRow).
+(Shift, Store, ClearRow, MinRow/MaxRow).
 """
 
 from __future__ import annotations
@@ -50,9 +61,10 @@ from pilosa_tpu_torch.models.field import FieldType
 from pilosa_tpu_torch.models.row import Row
 from pilosa_tpu_torch.models.view import VIEW_STANDARD
 from pilosa_tpu_torch.ops import bitmap as bm
+from pilosa_tpu_torch.ops import bsi as bsi_ops
 from pilosa_tpu_torch.ops import containers, expr
 from pilosa_tpu_torch.parallel.results import (FieldRow, GroupCount, Pair,
-                                               sort_pairs)
+                                               ValCount, sort_pairs)
 from pilosa_tpu_torch.pql import Call, Query, parse
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
@@ -133,6 +145,8 @@ class Executor:
             return self._execute_rows(idx, call, shards, opt)
         if name == "GroupBy":
             return self._execute_group_by(idx, call, shards, opt)
+        if name in ("Sum", "Min", "Max"):
+            return self._execute_aggregate(idx, call, shards, opt)
         raise ExecutionError(f"{name}() is not supported by this port yet")
 
     def _check_keys(self, idx, call: Call) -> None:
@@ -173,7 +187,7 @@ class Executor:
         f = idx.field(name)
         if f is None:
             raise ExecutionError(f"field not found: {name}")
-        if f.options.type != FieldType.SET:
+        if f.options.type not in (FieldType.SET, FieldType.INT):
             raise ExecutionError(f"field {name!r} is a {f.options.type} "
                                  f"field, which this port does not serve yet")
         return f
@@ -190,12 +204,25 @@ class Executor:
 
     def _fused_supported(self, idx, call: Call) -> bool:
         """True when the tree evaluates over all shards at once: plain
-        standard-view Row leaves of set fields combined with Union/
-        Intersect/Difference/Xor/Not."""
+        standard-view Row leaves of set fields and condition rows of int
+        fields, combined with Union/Intersect/Difference/Xor/Not."""
         name = call.name
         if name == "Row":
-            if call.has_condition_arg():
-                return False
+            cond = call.condition_arg()
+            if cond is not None:
+                fname, condition = cond
+                f = idx.field(fname)
+                if f is None or f.options.type != FieldType.INT:
+                    return False
+                if condition.op == "><":
+                    v = condition.value
+                    return (isinstance(v, list) and len(v) == 2
+                            and all(isinstance(x, int)
+                                    and not isinstance(x, bool) for x in v))
+                if condition.value is None:
+                    return condition.op == "!="
+                return (isinstance(condition.value, int)
+                        and not isinstance(condition.value, bool))
             try:
                 fname = call.field_arg()
             except ValueError:
@@ -228,6 +255,15 @@ class Executor:
         dense row stack of the whole shard set."""
         name = call.name
         if name == "Row":
+            cond = call.condition_arg()
+            if cond is not None:
+                # a range leaf: K6 over the field's plane stack
+                fname, condition = cond
+                value = (condition.int_slice_value()
+                         if condition.op == "><" else condition.value)
+                leaves.append(idx.field(fname).device_range_stack(
+                    condition.op, value, shards))
+                return ("leaf", len(leaves) - 1)
             fname = call.field_arg()
             leaves.append(idx.field(fname).device_row_stack(
                 call.args[fname], shards))
@@ -267,8 +303,9 @@ class Executor:
     def _validate_call_fields(self, idx, call: Call) -> None:
         """Check referenced fields exist even when the shard set is
         empty."""
-        if call.name == "Row" and not call.has_condition_arg():
-            self._field(idx, call.field_arg())
+        if call.name == "Row":
+            cond = call.condition_arg()
+            self._field(idx, call.field_arg() if cond is None else cond[0])
         for child in call.children:
             self._validate_call_fields(idx, child)
 
@@ -308,10 +345,12 @@ class Executor:
         device, or None for empty (executor.py:1498)."""
         name = call.name
         if name == "Row":
-            if call.has_condition_arg() or "from" in call.args \
-                    or "to" in call.args:
-                raise ExecutionError("Row(): conditions and time ranges are "
-                                     "not supported by this port yet")
+            cond = call.condition_arg()
+            if cond is not None:
+                return self._range_words_shard(idx, cond, shard)
+            if "from" in call.args or "to" in call.args:
+                raise ExecutionError("Row(): time ranges are not supported "
+                                     "by this port yet")
             fname = call.field_arg()
             f = self._field(idx, fname)
             row_id = self._row_id(call, fname)
@@ -356,6 +395,24 @@ class Executor:
             child = self._bitmap_words_shard(idx, call.children[0], shard)
             return exist if child is None else bm.b_not(child, exist)
         raise ExecutionError(f"{name}() is not supported by this port yet")
+
+    def _range_words_shard(self, idx, cond, shard: int):
+        """A condition row on one shard (executor.py:1617-1632) -> int32
+        words on the device, or None."""
+        fname, condition = cond
+        f = self._field(idx, fname)
+        if condition.op == "><":
+            lo, hi = condition.int_slice_value()
+            return f.range_between(lo, hi, shard)
+        if condition.value is None:
+            if condition.op == "!=":  # != null -> not null
+                return f.not_null(shard)
+            raise ExecutionError("Row(): EQ null condition is not supported")
+        if not isinstance(condition.value, int) \
+                or isinstance(condition.value, bool):
+            raise ExecutionError("Row(): conditions only support integer "
+                                 "values")
+        return f.range_op(condition.op, condition.value, shard)
 
     # ------------------------------------------------------------- counts
 
@@ -747,6 +804,106 @@ class Executor:
             out = out[:limit]
         return out
 
+    # ------------------------------------------------------ aggregates
+
+    def _local_filter_row(self, idx, call: Call, shards, opt: ExecOptions):
+        """An aggregate's filter child over the shards, or None
+        (executor.py:2398-2412, one node)."""
+        if not call.children:
+            return None
+        return self._execute_bitmap_call(idx, call.children[0], shards, opt)
+
+    def _execute_aggregate(self, idx, call: Call, shards, opt: ExecOptions
+                           ) -> ValCount:
+        """Sum/Min/Max of an int field (executor.py:2414-2475): over all
+        shards at once from the plane stack when fusable, else per shard
+        against the filter row, merged with add/smaller/larger."""
+        fname = call.string_arg("field") or call.args.get("field")
+        if not fname:
+            raise ExecutionError(f"{call.name}() requires a field argument")
+        f = self._field(idx, fname)
+        shards = self._target_shards(idx, shards, opt)
+        if f.options.type == FieldType.INT and self._fuse_eligible(
+                idx, shards, call.children[0] if call.children else None):
+            if call.name == "Sum":
+                return self._fused_sum(idx, f, call, tuple(shards))
+            return self._fused_extreme(idx, f, call, tuple(shards))
+
+        filter_row = self._local_filter_row(idx, call, shards, opt)
+        out = ValCount()
+        if call.name == "Sum":
+            for shard in shards:
+                s, c = f.sum(filter_row, shard)
+                out = out.add(ValCount(s, c))
+            return out
+        reducer = "smaller" if call.name == "Min" else "larger"
+        for shard in shards:
+            r = (f.min if call.name == "Min" else f.max)(filter_row, shard)
+            vc = ValCount() if r is None else ValCount(r[0], r[1])
+            out = getattr(out, reducer)(vc)
+        return out
+
+    def _fused_consider(self, idx, f, call: Call, shards: tuple[int, ...]):
+        """(plane stack, consider, filter stack or None) of a fused
+        aggregate."""
+        P = f.device_plane_stack(shards)
+        exists = P[:, bsi_ops.EXISTS_PLANE]
+        if not call.children:
+            return P, exists, None
+        filt = self._fused_eval(idx, call.children[0], shards)
+        return P, exists & filt, filt
+
+    def _fused_sum(self, idx, f, call: Call, shards: tuple[int, ...]
+                   ) -> ValCount:
+        """Sum over all shards from the plane stack (executor.py:
+        2476-2496): the per-plane counts in two K4 launches, the count of
+        a filtered Sum in one K1 launch, exact assembly in Python ints."""
+        P, consider, filt = self._fused_consider(idx, f, call, shards)
+        pos, neg = bsi_ops.sign_plane_counts(P, consider)
+        pos = pos.to("cpu").numpy().astype(np.int64).sum(axis=0)
+        neg = neg.to("cpu").numpy().astype(np.int64).sum(axis=0)
+        if filt is None:
+            total_count = bm.popcount(consider)
+        else:
+            total_count = bm.popcount_and(P[:, bsi_ops.EXISTS_PLANE], filt)
+        total = sum((1 << i) * (int(p) - int(n))
+                    for i, (p, n) in enumerate(zip(pos, neg)))
+        return ValCount(total + total_count * f.options.base, total_count)
+
+    def _fused_extreme(self, idx, f, call: Call, shards: tuple[int, ...]
+                       ) -> ValCount:
+        """Min/Max over all shards from one stacked scan (executor.py:
+        2498-2537): every shard's candidate, then fragment.min/max's
+        sign branching (fragment.go:1147/1191) and smaller/larger on the
+        host."""
+        P, consider, _ = self._fused_consider(idx, f, call, shards)
+        is_min = call.name == "Min"
+        (signed_cnt, all_cnt, primary_taken, fallback_taken,
+         primary_n, fallback_n) = [
+            x.to("cpu").numpy()
+            for x in bsi_ops.extremes_stacked(P, consider,
+                                              "min" if is_min else "max")]
+        reducer = "smaller" if is_min else "larger"
+        out = ValCount()
+        for s in range(len(shards)):
+            if all_cnt[s] == 0:
+                continue
+            if signed_cnt[s] > 0:
+                # Min: a negative exists -> largest negative magnitude;
+                # Max: a non-negative exists -> largest magnitude
+                v = bsi_ops.assemble_value(primary_taken[s])
+                if is_min:
+                    v = -v
+                c = int(primary_n[s])
+            else:
+                # the smallest magnitude among what remains
+                v = bsi_ops.assemble_value(fallback_taken[s])
+                if not is_min:
+                    v = -v  # Max of all-negative = closest to zero
+                c = int(fallback_n[s])
+            out = getattr(out, reducer)(ValCount(v + f.options.base, c))
+        return out
+
     # ---------------------------------------------------------- writes
 
     def _execute_set(self, idx, call: Call) -> bool:
@@ -755,6 +912,15 @@ class Executor:
             raise ExecutionError("Set() column argument required")
         fname = call.field_arg()
         f = self._field(idx, fname)
+        if f.options.type == FieldType.INT:
+            # (executor.py:2815-2849): the value is the field argument
+            value = call.int_arg(fname)
+            if value is None:
+                raise ExecutionError("Set() row argument required")
+            ef = idx.existence_field()
+            if ef is not None:
+                ef.set_bit(0, col)
+            return f.set_value(col, value)
         row_id = self._row_id(call, fname)
         if row_id is None:
             raise ExecutionError("Set() row argument required")
@@ -772,6 +938,8 @@ class Executor:
             raise ExecutionError("Clear() column argument required")
         fname = call.field_arg()
         f = self._field(idx, fname)
+        if f.options.type == FieldType.INT:
+            return f.clear_value(col)
         row_id = self._row_id(call, fname)
         if row_id is None:
             raise ExecutionError("Clear() row argument required")

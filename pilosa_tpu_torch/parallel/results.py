@@ -1,13 +1,43 @@
-"""Query result types of TopN and GroupBy.
+"""Query result types of Sum/Min/Max, TopN and GroupBy.
 
-Copy of the ``Pair``/``PairField``/``FieldRow``/``GroupCount`` types and
-``sort_pairs`` of pilosa_tpu/parallel/results.py; the port keeps its own
-so it never imports the JAX package.
+Copy of the ``ValCount``/``Pair``/``PairField``/``FieldRow``/
+``GroupCount`` types and ``sort_pairs`` of pilosa_tpu/parallel/
+results.py; the port keeps its own so it never imports the JAX package.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+
+@dataclass
+class ValCount:
+    """BSI aggregate result (reference ValCount, executor.go:3000-3027)."""
+
+    val: int = 0
+    count: int = 0
+
+    def add(self, other: "ValCount") -> "ValCount":
+        return ValCount(self.val + other.val, self.count + other.count)
+
+    def smaller(self, other: "ValCount") -> "ValCount":
+        """Keep the smaller value; merge counts on ties."""
+        if other.count == 0:
+            return self
+        if self.count == 0 or other.val < self.val:
+            return other
+        if other.val == self.val:
+            return ValCount(self.val, self.count + other.count)
+        return self
+
+    def larger(self, other: "ValCount") -> "ValCount":
+        if other.count == 0:
+            return self
+        if self.count == 0 or other.val > self.val:
+            return other
+        if other.val == self.val:
+            return ValCount(self.val, self.count + other.count)
+        return self
 
 
 @dataclass

@@ -7,6 +7,7 @@ serves:
     POST /index/{index}
     POST /index/{index}/field/{field}
     POST /index/{index}/field/{field}/import
+    POST /index/{index}/field/{field}/import-value
     POST /index/{index}/field/{field}/import-roaring/{shard}
     POST /index/{index}/query          (raw PQL or JSON {"query": ...})
     GET  /debug/ragged
@@ -31,7 +32,8 @@ from pilosa_tpu_torch.api import API, ApiError, ConflictError, NotFoundError
 from pilosa_tpu_torch.models.field import FieldOptions
 from pilosa_tpu_torch.models.index import IndexOptions
 from pilosa_tpu_torch.models.row import Row
-from pilosa_tpu_torch.parallel.results import GroupCount, Pair, PairField
+from pilosa_tpu_torch.parallel.results import (GroupCount, Pair, PairField,
+                                               ValCount)
 
 #: largest accepted request body
 MAX_REQUEST_BYTES = 256 << 20
@@ -40,7 +42,8 @@ MAX_REQUEST_BYTES = 256 << 20
 def serialize_result(res):
     """Query result -> JSON-able value (pilosa_tpu/server/handler.py:46,
     for the result types this port returns): a Row, TopN's Pairs,
-    GroupBy's GroupCounts, Rows' ids, a count or a write's bool."""
+    Sum/Min/Max's ValCount, GroupBy's GroupCounts, Rows' ids, a count or
+    a write's bool."""
     if isinstance(res, Row):
         out = {}
         if res.exclude_columns:
@@ -56,6 +59,8 @@ def serialize_result(res):
         return _pair_dict(res)
     if isinstance(res, PairField):
         return _pair_dict(res.pair)
+    if isinstance(res, ValCount):
+        return {"value": int(res.val), "count": int(res.count)}
     if isinstance(res, GroupCount):
         return {
             "group": [_field_row_dict(fr) for fr in res.group],
@@ -283,6 +288,17 @@ class Handler:
                              row_keys=d.get("rowKeys"),
                              col_keys=d.get("columnKeys"),
                              clear=params.get("clear") == "true")
+        self._json(req, {})
+
+    @route("POST", "/index/{index}/field/{field}/import-value")
+    def handle_import_value(self, req, params, path, body):
+        """JSON {"columnIDs": [...], "values": [...]}
+        (pilosa_tpu/server/handler.py:976)."""
+        d = json.loads(body)
+        self.api.import_values(path["index"], path["field"],
+                               d.get("columnIDs") or [],
+                               d.get("values") or [],
+                               col_keys=d.get("columnKeys"))
         self._json(req, {})
 
     @route("POST", "/index/{index}/field/{field}/import-roaring/{shard}")

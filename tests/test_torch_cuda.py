@@ -1,10 +1,12 @@
 """Tests of the port that need an NVIDIA card: the CUDA kernels K2
 (``gathered_count_and``), K3 (``vm_counts``, the bitmap VM), K4
-(``row_counts_masked``, the TopN scan) and K5 (``masked_matrix_counts``,
-the GroupBy count) against their plain versions, the executor's
+(``row_counts_masked``, the TopN scan), K5 (``masked_matrix_counts``,
+the GroupBy count), K6 (``bsi_compare``, the BSI ripple) and K1
+(``count_and``) against their plain versions, the executor's
 ``Count(Intersect(Row, Row))`` route launching K2 on ``cuda`` pools, a
-coalesced heterogeneous batch launching K3 once, and TopN and GroupBy
-launching K4 and K5 where the CPU tests see their dispatch sites.
+coalesced heterogeneous batch launching K3 once, TopN and GroupBy
+launching K4 and K5, and an int field's range rows and aggregates
+launching K6, K4 and K1 where the CPU tests see their dispatch sites.
 
 Without a card every test here skips.  On a machine with one, run
 
@@ -270,4 +272,103 @@ def test_topn_and_groupby_on_cuda_launch_k4_and_k5(cuda_device):
     assert after["row_counts_masked"] - before["row_counts_masked"] == 1
     assert (after["masked_matrix_counts"]
             - before["masked_matrix_counts"]) == n_shards
+    h.close()
+
+
+def _bsi_planes(seed: int, shards: int, depth: int, words: int
+                ) -> np.ndarray:
+    """uint32 [shards, 2 + depth, words]: random planes, bit 31 set in
+    every 7th word, one all-ones and one all-zero column word."""
+    p = _words(seed, (shards, 2 + depth, words))
+    p[:, :, 0] = 0xFFFFFFFF
+    p[:, :, -1] = 0
+    return p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 20, 63])
+@pytest.mark.parametrize("shards,words", [(1, 2099), (3, 2048), (2, 7)])
+def test_k6_matches_its_plain_version(cuda_device, depth, shards, words):
+    P = _bsi_planes(depth + words, shards, depth, words)
+    cons = _words(depth + 1, (shards, words))
+    tP, tc = bm.to_tensor(P, cuda_device), bm.to_tensor(cons, cuda_device)
+    for upred in (0, 1, 2 ** depth - 1, (2 ** depth - 1) // 3,
+                  2 ** depth, 2 ** 64 - 1):
+        before = ck.bsi_compare.launches
+        lt, gt = ck.bsi_compare(tP, tc, upred, depth)
+        torch.cuda.synchronize()
+        assert ck.bsi_compare.launches == before + 1
+        want = ck.bsi_compare_plain(tP, tc, upred, depth)
+        assert torch.equal(lt, want[0]) and torch.equal(gt, want[1])
+        # the Pallas entry's function, early-out included
+        ult, ugt = ck.bsi_compare_unsigned(tP[0], tc[0], upred, depth)
+        cpu = ck.bsi_compare_unsigned(tP[0].cpu(), tc[0].cpu(), upred,
+                                      depth)
+        assert torch.equal(ult.cpu(), cpu[0])
+        assert torch.equal(ugt.cpu(), cpu[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2047, 2049, 100003, 2 ** 20])
+def test_k1_matches_its_plain_version(cuda_device, n):
+    a = _words(n, (n,))
+    b = _words(n + 1, (n,))
+    ta, tb = bm.to_tensor(a, cuda_device), bm.to_tensor(b, cuda_device)
+    before = ck.count_and.launches
+    got = ck.count_and(ta, tb)
+    assert ck.count_and.launches == before + 1
+    assert got == ck.count_and_plain(ta, tb)
+    assert got == int(np.bitwise_count(a & b).sum())
+    # a plane of a stack, strided rows, and a misaligned base
+    P = bm.to_tensor(_bsi_planes(n, 4, 3, 1030), cuda_device)
+    assert ck.count_and(P[:, 0], P[:, 2]) == \
+        ck.count_and_plain(P[:, 0], P[:, 2])
+    assert ck.count_and(ta[1:], tb[1:]) == ck.count_and_plain(ta[1:], tb[1:])
+
+
+@pytest.mark.cuda
+def test_k1_counts_past_two_to_the_31(cuda_device):
+    ones = torch.full((2 ** 26,), -1, dtype=torch.int32, device=cuda_device)
+    assert ck.count_and(ones, ones) == 2 ** 31
+    assert ck.count_and(ones.view(2 ** 10, 2 ** 16), ones.view(
+        2 ** 10, 2 ** 16)) == 2 ** 31
+
+
+@pytest.mark.cuda
+def test_int_field_on_cuda_launches_k6_k4_and_k1(cuda_device):
+    rng = np.random.default_rng(23)
+    n_shards = 3
+    h = Holder(None, device=cuda_device)
+    idx = h.create_index("i")
+    from pilosa_tpu_torch.models.field import FieldOptions
+
+    v = idx.create_field("v", FieldOptions.int_field(-1000, 1000))
+    cols = rng.choice(n_shards * SHARD_WIDTH, size=SHARD_WIDTH // 4,
+                      replace=False)
+    vals = rng.integers(-1000, 1001, size=len(cols))
+    v.import_values(cols, vals)
+    f = idx.create_field("f")
+    fc = rng.choice(n_shards * SHARD_WIDTH, size=SHARD_WIDTH // 2,
+                    replace=False)
+    f.import_bits(np.ones(len(fc), dtype=np.int64), fc)
+    ex = Executor(h, device=cuda_device)
+    inf = np.isin(cols, fc)
+    for q, want, k6, k4, k1 in (
+            ("Count(Row(v > 10))", int((vals > 10).sum()), 1, 0, 0),
+            ("Count(Row(-5 < v < 300))",
+             int(((vals > -5) & (vals < 300)).sum()), 2, 0, 0),
+            ("Sum(Row(f=1), field=v)", (int(vals[inf].sum()),
+                                        int(inf.sum())), 0, 2, 1),
+            ("Max(field=v)", (int(vals.max()),
+                              int((vals == vals.max()).sum())), 0, 0, 0)):
+        before = ck.launch_counts()
+        got = ex.execute("i", q)[0]
+        if not isinstance(got, int):
+            got = (got.val, got.count)
+        assert got == want, q
+        after = ck.launch_counts()
+        assert after["bsi_compare"] - before["bsi_compare"] == k6, q
+        assert after["row_counts_masked"] - before["row_counts_masked"] \
+            == k4, q
+        assert after["count_and"] - before["count_and"] == k1, q
     h.close()
