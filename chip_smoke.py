@@ -6,13 +6,15 @@
 Run from the root of a checkout, on a machine whose torch sees a CUDA
 card.  It drives the port's main paths -- the HTTP server answering PQL
 Count trees over a 256-shard x 2^20-column index, alone and concurrently
-through the coalescer, TopN, Rows and GroupBy over the same index, and
-range rows and Sum/Min/Max over an int field on it -- and holds every
-hand-written kernel against its plain PyTorch version on the card:
+through the coalescer, TopN, Rows and GroupBy over the same index, range
+rows and Sum/Min/Max over an int field on it, and Count/Row trees over
+array, run and bitmap containers ([containers] kinds, the server's
+default) -- and holds every hand-written kernel against its plain
+PyTorch version on the card:
 
 1. header: the card's name and power limit (nvidia-smi);
-2. build: the K2, K3, K4, K5, K6 and K1 sources, one nvcc each for
-   sm_90a, side by side;
+2. build: the K2, K3, K3-kinds, K4, K5, K6 and K1 sources, one nvcc each
+   for sm_90a, side by side;
 3. K2 check: ``gathered_count_and`` against its plain version on seeded
    pools (zero rows, indices past either end, P=1, a P that is not a
    power of two, and P=4096 over two 8192-row pools), bit-exact;
@@ -20,6 +22,11 @@ hand-written kernel against its plain PyTorch version on the card:
    random SSA programs over all five opcodes (B=1 D=1; (L, T) = (4, 4)
    and the caps (16, 32); pad rows and pad slots on the zero row; an
    8192-row pool), bit-exact;
+4b. K3-kinds check: ``vm_counts_kinds`` against its plain version on
+   seeded kind-split megapools (array, run and bitmap containers with
+   bits 0 and 65535): B=1 D=1; (L, T) = (4, 4) and the caps (16, 32);
+   pad rows and slots; each kind's pool empty in turn; 4096 containers,
+   bit-exact;
 5. the K2 path: a ``cuda`` Server (coalescer on by default) on a
    temporary directory; field f's rows 1-3 at 8 % fill and row 4 at 50 %
    imported through ``POST .../import-roaring/{shard}``; each query once
@@ -56,21 +63,35 @@ hand-written kernel against its plain PyTorch version on the card:
    plane, and 2^26 all-ones words (2^31 bits), bit-exact;
 11. the BSI path: int field v (min -10^6, max 10^6, base 0, bitDepth 20)
    on all 256 shards, about 70 % of the columns holding a value, 30 % of
-   those negative; its 22 plane rows per shard imported through
-   ``import-roaring`` into the view ``bsig_v``, 3000 values through
-   ``/import-value``; range Counts (every operator, a between across
+   those negative; ``import-roaring`` into it answers 400, as in the
+   reference, and its 22 plane rows per shard load through the
+   in-process ``Field.import_roaring`` into the view ``bsig_v``; 3000
+   values through ``/import-value``; range Counts (every operator, a between across
    zero, ``!= null``, out of range, inside an Intersect), a per-shard
    ``Row(v > 999000)`` with ``?shards=5``, and Sum/Min/Max with and
    without a filter, each once cold and ``QUERY_RUNS`` times warm, every
    answer equal to a numpy oracle on the values and K6, K4 and K1
    launched exactly at their launch sites (counts zeroed just before,
    read just after); then a ``Set`` and every query again;
+11b. the kinds leg: field k on all 256 shards, imported through
+   ``import-roaring``: rows 1-8 arrays at ~0.1 % fill, rows 9-16 runs (16
+   runs of 512 columns per container, 12.5 %), rows 17-24 bitmaps at
+   8 %; a dozen Count and Row trees over the three kinds, each once cold
+   and ``KINDS_WARM`` times warm under the coalescer (a Count is one
+   K3-kinds launch, or one K3 over bitmap rows alone) and once with
+   ``?nocoalesce=true``; 16 kinds-mixed trees from 16 clients for
+   ``KINDS_ROUNDS`` rounds, K3-kinds launches equal to vm.executions;
+   every answer equal to a numpy oracle and every kernel launched
+   exactly at its launch sites (counts zeroed just before, read just
+   after); then every query again with kinds off, equal answers, and
+   field k's pool bytes on the card with kinds on and off;
 12. K3 timing on the inputs of one real flush of step 7, K2 timing on
    step 5's pools, K4 on the fused TopN's inputs and K5 on one shard's
    GroupBy level-1 inputs, both recorded from step 9, K6 on a range
-   Count's inputs and K1 on a filtered Sum's, both recorded from step 11
-   (CUDA events around each launch, L2 flushed before each), beside their
-   plain versions and their bounds.
+   Count's inputs and K1 on a filtered Sum's, both recorded from step
+   11, K3-kinds on one launch of ``KINDS_TIMED_BATCH`` queries recorded
+   from step 11b (CUDA events around each launch, L2 flushed before
+   each), beside their plain versions and their bounds.
 
 Latencies are host-clock times; each is reported as the median with its
 10th and 90th percentiles and the sample count.
@@ -134,6 +155,12 @@ BSI_FILL = 7  # of 10 columns hold a value
 BSI_NEG = 3  # of 10 values are negative
 BSI_IMPORT_VALUES = 3000  # values that also go through /import-value
 BSI_SET = (5, 4321, 123)  # Set(col, v=123) at shard 5, offset 4321
+KINDS_ARRAY_BITS = 65  # of 65536 per container: the array rows, ~0.1 %
+KIND_RUNS = 16  # runs per container in the run rows...
+KIND_RUN_LEN = 512  # ...of this many columns each (12.5 % fill)
+KINDS_WARM = 30  # warm runs of each kinds-leg query
+KINDS_ROUNDS = 30  # coalesced rounds over kinds-mixed shapes
+KINDS_TIMED_BATCH = 4  # queries in the timed K3-kinds launch
 
 _OPS = {"and": "Intersect", "or": "Union", "andnot": "Difference",
         "xor": "Xor"}
@@ -235,8 +262,9 @@ def phase_header(torch) -> dict:
     return {"kind": kind, "hbm_rate": hbm, "sm_cycles": sms * clk_mhz * 1e6}
 
 
-KERNEL_SOURCES = ("gathered_count_and", "vm_counts", "row_counts_masked",
-                  "masked_matrix_counts", "bsi_compare", "count_and")
+KERNEL_SOURCES = ("gathered_count_and", "vm_counts", "vm_counts_kinds",
+                  "row_counts_masked", "masked_matrix_counts", "bsi_compare",
+                  "count_and")
 
 
 def phase_build(nvcc_build) -> None:
@@ -1390,10 +1418,11 @@ def run_bsi_queries(ck, http: Http, wants: dict, runs: int, out: dict,
                                   if runs > 1 else ""))
 
 
-def phase_bsi(ck, http: Http, roaring, data: dict, cpr: int, words: int,
-              seed: int) -> dict:
-    """The int field v on all shards: planes imported through
-    import-roaring into its BSI view, a few thousand values through
+def phase_bsi(ck, srv, http: Http, roaring, data: dict, cpr: int,
+              words: int, seed: int) -> dict:
+    """The int field v on all shards: planes loaded into its BSI view
+    through the in-process ``Field.import_roaring`` (the wire refuses
+    roaring into an int field), a few thousand values through
     /import-value; every query once cold and QUERY_RUNS times warm, every
     answer equal to the numpy oracle and K6 / K4 / K1 launched exactly at
     their launch sites; then a Set and every query again.  Returns the
@@ -1414,16 +1443,23 @@ def phase_bsi(ck, http: Http, roaring, data: dict, cpr: int, words: int,
           "create int field v")
     t0 = time.perf_counter()
     rows = {p: planes[:, p] for p in range(planes.shape[1])}
+    # the wire refuses roaring into an int field, as the reference does;
+    # the planes load through the in-process field
+    blob = roaring_payload(roaring, rows, 0, cpr)
+    body = json.dumps({"views": {"bsig_v": base64.b64encode(
+        blob).decode()}}).encode()
+    st, resp = http.post("/index/i/field/v/import-roaring/0", body)
+    check(st == 400 and b"only supported for set and time fields" in resp,
+          f"import-roaring into an int field: HTTP {st} {resp!r}")
+    field = srv.holder.index("i").field("v")
     sent = 0
     for s in range(N_SHARDS):
         blob = roaring_payload(roaring, rows, s, cpr)
         sent += len(blob)
-        body = json.dumps({"views": {"bsig_v": base64.b64encode(
-            blob).decode()}}).encode()
-        st, resp = http.post(f"/index/i/field/v/import-roaring/{s}", body)
-        check(st == 200, f"import-roaring v shard {s}: HTTP {st} {resp!r}")
+        field.import_roaring(s, blob, view="bsig_v")
     log(f"import: field v, {N_SHARDS} roaring payloads of {planes.shape[1]} "
-        f"plane rows, {sent} bytes, in {time.perf_counter() - t0:.1f} s")
+        f"plane rows through Field.import_roaring, {sent} bytes, in "
+        f"{time.perf_counter() - t0:.1f} s")
     del rows, planes
     rng = np.random.default_rng(seed + 13)
     cols = rng.choice(N_SHARDS * width, size=BSI_IMPORT_VALUES,
@@ -1557,6 +1593,422 @@ def phase_k1_time(torch, ck, probe, card: dict) -> dict:
                           for k, v in k1.items()}}
 
 
+# ------------------------------------------------------------- kinds leg
+
+
+def kind_blocks(rng, n: int) -> np.ndarray:
+    """n dense containers cycling through array, run and bitmap styles,
+    bits 0 and 65535 in every seventh."""
+    blocks = np.zeros((n, 2048), dtype=np.uint32)
+    for i in range(n):
+        style = i % 3
+        if style == 0:
+            pos = rng.choice(1 << 16, int(rng.integers(1, 4000)),
+                             replace=False)
+        elif style == 1:
+            starts = np.sort(rng.choice(256, int(rng.integers(1, 200)),
+                                        replace=False)) * 256
+            pos = np.concatenate([np.arange(s0, s0 + int(rng.integers(
+                1, 250))) for s0 in starts])
+        else:
+            pos = rng.choice(1 << 16, 20000, replace=False)
+        if i % 7 == 0:
+            pos = np.concatenate([pos, [0, 65535]])
+        np.bitwise_or.at(blocks[i], pos >> 5,
+                         np.uint32(1) << (pos & 31).astype(np.uint32))
+    return blocks
+
+
+def kinds_case(kp, rng, label, n_blocks, slots, tape_len, n_q, domain,
+               drop=None, live_q=None):
+    """(label, bpool, apool, acard, rpool, prog, gidx) as numpy: a
+    kind-split megapool of seeded containers (``drop`` leaves one kind's
+    pool with only its empty row), random SSA programs over all five
+    opcodes, pad rows past ``live_q`` and pad slots on the zero row."""
+    blocks = kind_blocks(rng, n_blocks)
+    kinds = kp.pick_kinds(blocks)
+    if drop is not None:
+        keep = kinds != drop
+        blocks, kinds = blocks[keep], kinds[keep]
+    _s, bb, ap, ac, rp = kp.split_pools(blocks, kinds)
+    bpool = np.concatenate([bb, np.zeros((1, 2048), np.uint32)])
+    apool = np.concatenate([ap, np.full((1, ap.shape[1]), 0xFFFF,
+                                        np.uint16)])
+    acard = np.concatenate([ac, np.zeros(1, np.int32)])
+    pad = np.zeros((1, rp.shape[1]), np.uint16)
+    pad[:, 0::2] = 1
+    rpool = np.concatenate([rp, pad])
+    rows = len(bpool) + len(apool) + len(rpool)
+    prog = np.zeros((n_q, tape_len, 3), dtype=np.int32)
+    for q in range(n_q):
+        for t in range(tape_len):
+            prog[q, t] = (rng.integers(5), rng.integers(slots + t),
+                          rng.integers(slots + t))
+    gidx = rng.integers(0, rows, size=(slots, n_q, domain)).astype(np.int32)
+    zero = len(bpool) - 1
+    gidx[slots - 1] = zero
+    if live_q is not None:
+        prog[live_q:] = (4, 0, 0)
+        gidx[:, live_q:] = zero
+        gidx[:, :, domain // 2:] = zero
+    return label, bpool, apool, acard, rpool, prog, gidx
+
+
+def kinds_tensors(torch, bm, dev, bpool, apool, acard, rpool):
+    return (bm.to_tensor(bpool, dev),
+            torch.from_numpy(apool.view(np.int16)).to(dev),
+            torch.from_numpy(acard).to(dev),
+            torch.from_numpy(rpool.view(np.int16)).to(dev))
+
+
+def phase_k3k_check(torch, ck, bm, kp, dev, seed: int) -> int:
+    """K3-kinds against its plain version on the card; returns max
+    |err|.  B=1 D=1; (L, T) = (4, 4) and the caps (16, 32); pad rows and
+    slots; each kind's pool empty in turn; and 4096 containers, those of
+    one 2^20-column row over 256 shards."""
+    rng = np.random.default_rng(seed + 33)
+    cases = [kinds_case(kp, rng, "b1d1", 3, 1, 1, 1, 1),
+             kinds_case(kp, rng, "l4t4", 60, 4, 4, 4, 64),
+             kinds_case(kp, rng, "caps", 90, 16, 32, 2, 32),
+             kinds_case(kp, rng, "pads", 40, 4, 4, 8, 16, live_q=5),
+             kinds_case(kp, rng, "no_bitmap", 30, 4, 4, 4, 16, drop=1),
+             kinds_case(kp, rng, "no_array", 30, 4, 4, 4, 16, drop=2),
+             kinds_case(kp, rng, "no_run", 30, 4, 4, 4, 16, drop=3),
+             kinds_case(kp, rng, "c4096", 4096, 4, 4, 4, 2048)]
+    worst = 0
+    for label, bpool, apool, acard, rpool, prog, gidx in cases:
+        pools = kinds_tensors(torch, bm, dev, bpool, apool, acard, rpool)
+        tprog, tgidx = torch.from_numpy(prog), torch.from_numpy(gidx)
+        got = ck.vm_counts_kinds(*pools, tprog, tgidx)
+        torch.cuda.synchronize()
+        want = ck.vm_counts_kinds_plain(*pools, tprog, tgidx)
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        worst = max(worst, err)
+        log(f"K3-kinds check {label}: Rb={len(bpool)} Ra={len(apool)} "
+            f"(acap {apool.shape[1]}) Rr={len(rpool)} (rcap "
+            f"{rpool.shape[1] // 2}), B={prog.shape[0]} T={prog.shape[1]} "
+            f"L={gidx.shape[0]} D={gidx.shape[2]}, max_abs_err {err}")
+        check(err == 0 and torch.equal(got, want),
+              f"K3-kinds differs from its plain version ({label})")
+    return worst
+
+
+def kind_rows(rng, n_shards: int, words: int) -> dict:
+    """Field k: rows 1-8 arrays at ~0.1 % fill (random bits), rows 9-16
+    runs (KIND_RUNS runs of KIND_RUN_LEN consecutive columns in every
+    container, 12.5 %), rows 17-24 bitmaps at ~8 % (FILL_SPARSE)."""
+    n_cont = n_shards * words // 2048
+    rows = {}
+    for r in range(1, 9):
+        m = np.zeros(n_shards * words, dtype=np.uint32)
+        pos = rng.integers(0, n_shards * words * 32,
+                           size=n_cont * KINDS_ARRAY_BITS, dtype=np.int64)
+        np.bitwise_or.at(m, pos >> 5,
+                         np.uint32(1) << (pos & 31).astype(np.uint32))
+        rows[r] = m.reshape(n_shards, words)
+    # runs start on every other KIND_RUN_LEN slot, so none touch
+    slots = (1 << 16) // (2 * KIND_RUN_LEN)
+    run_words = KIND_RUN_LEN // 32
+    for r in range(9, 17):
+        m = np.zeros((n_cont, 2048), dtype=np.uint32)
+        pick = np.argsort(rng.random((n_cont, slots)), axis=1)[:, :KIND_RUNS]
+        idx = (pick[:, :, None] * 2 * run_words
+               + np.arange(run_words)).reshape(n_cont, -1)
+        np.put_along_axis(m, idx, np.uint32(0xFFFFFFFF), axis=1)
+        rows[r] = m.reshape(n_shards, words)
+    for r in range(17, 25):
+        rows[r] = sparse_rows(rng, n_shards, words)
+    return rows
+
+
+def row_columns(words: np.ndarray) -> list:
+    """Sorted column ids of a row given as uint32[n_shards, words]."""
+    flat = words.reshape(-1)
+    nz = np.flatnonzero(flat)
+    bits = np.unpackbits(flat[nz].view(np.uint8).reshape(-1, 4), axis=1,
+                         bitorder="little")
+    w, b = np.nonzero(bits)
+    return (nz[w].astype(np.int64) * 32 + b).tolist()
+
+
+#: (label, tree, root) of the kinds leg: field k's rows 1-8 are arrays,
+#: 9-16 runs, 17-24 bitmaps
+KINDS_QUERIES = (
+    ("aa", ("and", ("k", 1), ("k", 2)), "count"),
+    ("ab", ("and", ("k", 1), ("k", 17)), "count"),
+    ("rr", ("and", ("k", 9), ("k", 10)), "count"),
+    ("ar", ("and", ("k", 2), ("k", 11)), "count"),
+    ("rb", ("and", ("k", 12), ("k", 18)), "count"),
+    ("bb", ("and", ("k", 17), ("k", 18)), "count"),
+    ("union_arb", ("or", ("k", 3), ("k", 13), ("k", 19)), "count"),
+    ("xor_rb", ("xor", ("k", 14), ("k", 20)), "count"),
+    ("diff_br", ("andnot", ("k", 21), ("k", 15)), "count"),
+    ("nested", ("and", ("or", ("k", 4), ("k", 16)),
+                ("andnot", ("k", 22), ("k", 5))), "count"),
+    ("row_aa", ("and", ("k", 1), ("k", 2)), "row"),
+    ("row_ar", ("and", ("k", 6), ("k", 9)), "row"),
+)
+#: the coalesced rounds of the kinds leg: 16 shapes, every one reading an
+#: array and a run row
+KINDS_TREES = _trees(("k", 1), ("k", 9), ("k", 17), ("k", 2), ("k", 10))
+
+
+def kinds_pql(tree, root: str) -> str:
+    return f"Count({tree_pql(tree)})" if root == "count" else tree_pql(tree)
+
+
+def kinds_want(tree, root: str, data: dict):
+    words = tree_words(tree, data)
+    if root == "count":
+        return int(np.bitwise_count(words).sum(dtype=np.int64))
+    return {"columns": row_columns(words)}
+
+
+def kinds_launch_sites(label: str, root: str) -> tuple:
+    """(K3-kinds, K3, K2) launches of one request of the query, by
+    route: under the coalescer a Count is one VM launch (K3 when every
+    leaf is all-bitmap); with ?nocoalesce=true only the all-bitmap pair
+    launches (K2); the array arms and the gathered decode are plain
+    torch; a Row root runs no kernel."""
+    if root != "count":
+        return (0, 0, 0), (0, 0, 0)
+    bitmap_only = label == "bb"
+    default = (0, 1, 0) if bitmap_only else (1, 0, 0)
+    nocoal = (0, 0, 1) if bitmap_only else (0, 0, 0)
+    return default, nocoal
+
+
+def kinds_pool_bytes(srv, n_rows: int) -> dict:
+    """Field k's container leaves over all shards: the bytes their pools
+    hold on the card (pow2 row padding included) and the live compact
+    bytes (8 KiB per bitmap container, 2 * acap + 4 per array, 4 * rcap
+    per run)."""
+    f = srv.holder.index("i").field("k")
+    shards = tuple(sorted(srv.holder.index("i").available_shards()))
+    held = live = 0
+    for r in range(1, n_rows + 1):
+        leaf = f.device_container_leaf(r, shards)
+        held += leaf.nbytes
+        live += leaf.n * 8192
+        if leaf.has_kinds:
+            live += leaf.an * (2 * int(leaf.apool.shape[1]) + 4)
+            live += leaf.rn * 4 * (int(leaf.rpool.shape[1]) // 2)
+    return {"held": held, "live": live}
+
+
+def run_kinds_queries(ck, http: Http, wants: dict, runs: int, flags: str,
+                      sites: int, out: dict, tag: str) -> None:
+    """Each kinds-leg query ``runs`` times with ``flags``, every answer
+    equal to the oracle and K3-kinds / K3 / K2 launched exactly at their
+    launch sites (``sites`` picks the default or the ?nocoalesce=true
+    column of kinds_launch_sites)."""
+    names = ("vm_counts_kinds", "vm_counts", "gathered_count_and")
+    for label, tree, root in KINDS_QUERIES:
+        pql = kinds_pql(tree, root)
+        k0 = ck.launch_counts()
+        lat = []
+        for _ in range(runs):
+            res, ms = http.query(pql, flags)
+            lat.append(ms)
+            check(res == [wants[label]], f"{pql}{flags}: differs from the "
+                                         f"oracle: {str(res)[:200]}")
+        k1 = ck.launch_counts()
+        got = {k: k1[k] - k0[k] for k in k1}
+        per = kinds_launch_sites(label, root)[sites]
+        check(all(got[n] == p * runs for n, p in zip(names, per))
+              and all(v == 0 for k, v in got.items() if k not in names),
+              f"{pql}{flags}: launches {got} in {runs} runs, sites {per}")
+        entry = {"pql": pql + flags, "first_ms": lat[0],
+                 "launches": {n: got[n] for n in names if got[n]}}
+        if runs > 1:
+            entry["warm_ms"] = spread(lat[1:])
+        out[label + tag] = entry
+        log(f"kinds {label}{tag}: {pql}{flags} = oracle; launches "
+            f"{entry['launches']}; first {lat[0]:.2f} ms"
+            + (f", warm over HTTP {fmt(entry['warm_ms'])}" if runs > 1
+               else ""))
+
+
+def phase_kinds(ck, tape, containers, srv, http: Http, roaring, cpr: int,
+                words: int, seed: int) -> dict:
+    """Field k (array, run and bitmap rows) on all shards, imported over
+    HTTP; every kinds-leg query once cold and KINDS_WARM times warm under
+    the coalescer and once with ?nocoalesce=true, every answer equal to
+    the numpy oracle and every kernel launched exactly at its launch
+    sites; the 16-client coalesced rounds over kinds-mixed shapes, K3-kinds
+    launches equal to vm.executions; then every query again with kinds
+    off, equal answers, and the pool bytes both ways.  Returns the
+    measurements and, in ``flush``, one K3-kinds flush's inputs."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 17)
+    data = {"k": kind_rows(rng, N_SHARDS, words)}
+    log(f"kinds data: field k, 24 rows on {N_SHARDS} shards, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    import_field(http, roaring, "k", data["k"], N_SHARDS, cpr)
+    t0 = time.perf_counter()
+    wants = {label: kinds_want(tree, root, data)
+             for label, tree, root in KINDS_QUERIES}
+    twants = [oracle(t, data) for t in KINDS_TREES]
+    log(f"kinds oracles in {time.perf_counter() - t0:.1f} s")
+    check(containers.config().kinds, "container kinds are off")
+    f = srv.holder.index("i").field("k")
+    kinds = [int(k) for r in (1, 9, 17)
+             for k in f.fragment(3).row_container_kinds(r)[3][:1]]
+    check(kinds == [2, 3, 1], f"rows 1, 9, 17 picked kinds {kinds}")
+
+    out: dict = {"queries": {}}
+    c0 = containers.counters()
+    # ---- the kinds leg: counts zeroed just before, read just after
+    ck.reset_launch_counts()
+    run_kinds_queries(ck, http, wants, 1 + KINDS_WARM, "", 0,
+                      out["queries"], "")
+    run_kinds_queries(ck, http, wants, 1, "?nocoalesce=true", 1,
+                      out["queries"], "_nocoalesce")
+    fire_rounds(http, KINDS_TREES, twants, 1)  # stage every directory
+    tape.reset_counters()
+    k0 = ck.launch_counts()
+    lat, wall = fire_rounds(http, KINDS_TREES, twants, KINDS_ROUNDS)
+    k1 = ck.launch_counts()
+    vm = tape.counters()
+    out["launches"] = ck.launch_counts()
+    # ---- end of the kinds leg
+    c1 = containers.counters()
+    gathered = {k: c1[k] - c0[k] for k in (
+        "container.bitmap_gathered", "container.array_gathered",
+        "container.run_gathered")}
+    check(all(v > 0 for v in gathered.values()),
+          f"a kind was never gathered: {gathered}")
+    n_q = len(KINDS_TREES) * KINDS_ROUNDS
+    kk = k1["vm_counts_kinds"] - k0["vm_counts_kinds"]
+    check(vm["vm.queries"] == n_q and vm["vm.fallbacks"] == 0,
+          f"kinds rounds: vm counters {vm}")
+    check(kk == vm["vm.executions"] > 0 and k1["vm_counts"]
+          == k0["vm_counts"], f"kinds rounds: K3-kinds {kk}, vm.executions "
+          f"{vm['vm.executions']}, K3 {k1['vm_counts'] - k0['vm_counts']}")
+    sp = spread(lat)
+    out["coalesced"] = {"queries": n_q, "rounds": KINDS_ROUNDS,
+                        "vm_executions": vm["vm.executions"],
+                        "k3_kinds_launches": kk,
+                        "queries_per_launch": n_q / vm["vm.executions"],
+                        "latency_ms": sp, "qps": n_q / wall,
+                        "programs": tape.debug()["vm"]["programs"]}
+    out["gathered"] = gathered
+    log(f"kinds coalesced: {len(KINDS_TREES)} trees x {KINDS_ROUNDS} rounds "
+        f"from {len(KINDS_TREES)} clients, every answer exact; "
+        f"vm.executions {vm['vm.executions']} = K3-kinds launches, "
+        f"{out['coalesced']['queries_per_launch']:.2f} queries per launch; "
+        f"per request {fmt(sp)}; {out['coalesced']['qps']:.1f} queries/s; "
+        f"gathered {gathered}")
+
+    # one more round under a 100 ms window, so that the 16 queries meet
+    # in one bucket and the prefetch budget halves it into launches of a
+    # fixed width (KINDS_TIMED_BATCH queries), recording the launches'
+    # inputs for the timing
+    flushes: list = []
+    real = tape.execute_vm
+
+    def recording(batch, pool, zero_index, tape_len=None, slots=None,
+                  max_prefetch=None):
+        flushes.append((list(batch), pool, zero_index, tape_len, slots,
+                        max_prefetch))
+        return real(batch, pool, zero_index, tape_len, slots, max_prefetch)
+
+    window = srv.coalescer.window_s
+    tape.execute_vm, srv.coalescer.window_s = recording, 0.1
+    try:
+        fire_rounds(http, KINDS_TREES, twants, 1)
+    finally:
+        tape.execute_vm, srv.coalescer.window_s = real, window
+    check(flushes and all(isinstance(fl[1], containers.MegaPools)
+                          for fl in flushes),
+          "a kinds flush ran over a plain pool")
+    # the calls that launched: the halving stops where a batch fits
+    launched = [fl[:5] for fl in flushes
+                if len(fl[0]) == 1 or fl[4] * (1 << (len(fl[0]) - 1)
+                                               .bit_length())
+                * len(fl[0][0][1][0]) <= fl[5]]
+    fixed = [fl for fl in launched if len(fl[0]) == KINDS_TIMED_BATCH]
+    check(bool(fixed), f"no kinds launch of {KINDS_TIMED_BATCH} queries: "
+                       f"{sorted(len(fl[0]) for fl in launched)}")
+    out["flush"] = fixed[0]
+
+    on = kinds_pool_bytes(srv, 24)
+    containers.configure(kinds=False)
+    try:
+        for label, tree, root in KINDS_QUERIES:
+            pql = kinds_pql(tree, root)
+            for flags in ("", "?nocoalesce=true"):
+                res, _ms = http.query(pql, flags)
+                check(res == [wants[label]],
+                      f"{pql}{flags} with kinds off: {str(res)[:200]}")
+        off = kinds_pool_bytes(srv, 24)
+    finally:
+        containers.configure(kinds=True)
+    out["pool_bytes"] = {"kinds_on": on, "kinds_off": off,
+                         "held_ratio": off["held"] / on["held"],
+                         "live_ratio": off["live"] / on["live"]}
+    log(f"kinds pool bytes of field k's 24 rows: kinds on {on}, kinds off "
+        f"{off}; off/on {out['pool_bytes']['held_ratio']:.2f} held, "
+        f"{out['pool_bytes']['live_ratio']:.2f} live; every query equal with "
+        f"kinds off")
+    return out
+
+
+def phase_k3k_time(torch, ck, tape, flush, card: dict) -> dict:
+    """K3-kinds on the inputs of one real flush of the kinds rounds."""
+    batch, mp, zero, tb, lb = flush
+    prog_np, gidx_np = tape.vm_program(batch, zero, tb, lb)
+    dev = mp.bpool.device
+    prog = torch.from_numpy(prog_np).to(dev)
+    gidx = torch.from_numpy(gidx_np).to(dev)
+    pools = (mp.bpool, mp.apool, mp.acard, mp.rpool)
+    got = ck.vm_counts_kinds(*pools, prog, gidx)
+    want = ck.vm_counts_kinds_plain(*pools, prog, gidx)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    check(err == 0, "K3-kinds differs from its plain version on the kinds "
+                    "rounds' inputs")
+    flush_buf = torch.zeros(64 << 20, dtype=torch.int32, device=dev)
+    k3k = time_ms(torch, lambda: ck._vm_kinds_launch(*pools, prog, gidx),
+                  TIMED_LAUNCHES, flush_buf)
+    plain = time_ms(torch, lambda: ck.vm_counts_kinds_plain(*pools, prog,
+                                                            gidx),
+                    K3_PLAIN_LAUNCHES, flush_buf)
+    n_q, tape_len, _ = prog_np.shape
+    slots, _, domain = gidx_np.shape
+    live = len(batch)
+    rb, ra = int(mp.bpool.shape[0]), int(mp.apool.shape[0])
+    acap, rcap = int(mp.apool.shape[1]), int(mp.rpool.shape[1]) // 2
+    # bytes: each row the directory names once, in its compact form
+    rows = np.unique(gidx_np)
+    n_b = int((rows < rb).sum())
+    n_a = int(((rows >= rb) & (rows < rb + ra)).sum())
+    n_r = len(rows) - n_b - n_a
+    nbytes = (n_b * 8192 + n_a * (2 * acap + 4) + n_r * 4 * rcap
+              + prog_np.nbytes + gidx_np.nbytes + n_q * domain * 4)
+    bytes_ms = nbytes / card["hbm_rate"] * 1e3
+    cycles = (live * domain * ck.CONTAINER_WORDS
+              * (tape_len * BITWISE_CYCLES + POPC_CYCLES + BITWISE_CYCLES))
+    ops_ms = cycles / card["sm_cycles"] * 1e3
+    ms = k3k["median"]
+    log(f"K3-kinds timing: one flush of {live} queries, B={n_q} T={tape_len} "
+        f"L={slots} D={domain}, pools Rb={rb} Ra={ra} (acap {acap}) "
+        f"Rr={int(mp.rpool.shape[0])} (rcap {rcap}), distinct rows named: "
+        f"{n_b} bitmap, {n_a} array, {n_r} run, {nbytes} bytes; kernel "
+        f"{fmt(k3k, 1e3, 'us')}, plain {fmt(plain, 1e3, 'us')}, bound "
+        f"{bytes_ms * 1e3:.2f} us by bytes, {ops_ms * 1e3:.2f} us by "
+        f"operations")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain["median"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "spread_us": {k: v * 1e3 if k != "n" else v
+                          for k, v in k3k.items()},
+            "shape": {"B": n_q, "live": live, "T": tape_len, "L": slots,
+                      "D": domain, "Rb": rb, "Ra": ra, "acap": acap,
+                      "Rr": int(mp.rpool.shape[0]), "rcap": rcap,
+                      "rows_named": [n_b, n_a, n_r]}}
+
+
 def kernel_line(name, source, replaces, launches, err, timing) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -1569,8 +2021,8 @@ def kernel_line(name, source, replaces, launches, err, timing) -> dict:
 def run_paths(torch, ck, bm, containers, tape, Server, roaring,
               seed: int, card: dict) -> dict:
     """The server on cuda: the K2 path, the lone query, the coalesced
-    path, the scan path, the BSI path, then the timings on their own
-    inputs."""
+    path, the scan path, the BSI path, the kinds leg, then the timings
+    on their own inputs."""
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
     words = SHARD_WIDTH // 32
@@ -1586,12 +2038,14 @@ def run_paths(torch, ck, bm, containers, tape, Server, roaring,
         + f", made in {time.perf_counter() - t0:.1f} s")
 
     tmp = tempfile.mkdtemp(prefix="pilosa_torch_smoke_")
-    srv = Server(tmp, port=0)  # the defaults: cuda, coalescer "auto"
+    srv = Server(tmp, port=0)  # the defaults: cuda, coalescer "auto", kinds
     try:
         srv.open()
         check(srv.device.type == "cuda", f"server runs on {srv.device}")
         check(srv.coalescer.enabled and srv.coalescer.vm,
               "the coalescer or the VM is off on cuda")
+        check(containers.config().kinds, "container kinds are off by "
+                                         "default")
         http = Http(srv.uri)
         check(http.post("/index/i", b'{"options": {"trackExistence": '
                                     b'true}}')[0] == 200, "create index")
@@ -1605,7 +2059,10 @@ def run_paths(torch, ck, bm, containers, tape, Server, roaring,
         check("flush" in out["coalesced"], "no VM flush was recorded")
         out["scans"] = phase_scans(ck, bm, http, roaring, data, cpr, words,
                                    seed)
-        out["bsi"] = phase_bsi(ck, http, roaring, data, cpr, words, seed)
+        out["bsi"] = phase_bsi(ck, srv, http, roaring, data, cpr, words,
+                               seed)
+        out["kinds"] = phase_kinds(ck, tape, containers, srv, http, roaring,
+                                   cpr, words, seed)
         out["k3"] = phase_k3_time(torch, ck, tape,
                                   out["coalesced"].pop("flush"), card)
         out["k2"] = phase_k2_time(torch, ck, bm, out.pop("probe"), card)
@@ -1615,6 +2072,8 @@ def run_paths(torch, ck, bm, containers, tape, Server, roaring,
         probes = out["bsi"].pop("probes")
         out["k6"] = phase_k6_time(torch, ck, probes["k6"], card)
         out["k1"] = phase_k1_time(torch, ck, probes["k1"], card)
+        out["k3k"] = phase_k3k_time(torch, ck, tape,
+                                    out["kinds"].pop("flush"), card)
         return out
     finally:
         srv.close()
@@ -1635,6 +2094,7 @@ def main(argv: list[str] | None = None) -> int:
     try:
         from pilosa_tpu_torch.ops import bitmap as bm
         from pilosa_tpu_torch.ops import containers, nvcc_build, tape
+        from pilosa_tpu_torch.ops import kindpools as kp
         from pilosa_tpu_torch.ops import cuda_kernels as ck
         from pilosa_tpu_torch.server.server import Server
         from pilosa_tpu_torch.storage import roaring
@@ -1654,6 +2114,8 @@ def main(argv: list[str] | None = None) -> int:
         phase = "K3 check"
         k3_err = phase_k3_check(torch, ck, bm, dev, args.seed)
         words = (1 << 20) // 32
+        phase = "K3-kinds check"
+        k3k_err = phase_k3k_check(torch, ck, bm, kp, dev, args.seed)
         phase = "K4 check"
         k4_err = phase_k4_check(torch, ck, bm, dev, args.seed, words)
         phase = "K5 check"
@@ -1679,7 +2141,10 @@ def main(argv: list[str] | None = None) -> int:
                     "k4_us": out["k4"]["spread_us"],
                     "k5_us": out["k5"]["spread_us"],
                     "k6_us": out["k6"]["spread_us"],
-                    "k1_us": out["k1"]["spread_us"]}))
+                    "k1_us": out["k1"]["spread_us"],
+                    "kinds": out["kinds"],
+                    "k3_kinds_us": out["k3k"]["spread_us"],
+                    "k3_kinds_shape": out["k3k"]["shape"]}))
     log(json.dumps({"kernels": [
         kernel_line("gathered_count_and",
                     "pilosa_tpu_torch/ops/csrc/gathered_count_and.cu",
@@ -1690,6 +2155,11 @@ def main(argv: list[str] | None = None) -> int:
                     "pilosa_tpu/ops/pallas_kernels.py:454",
                     out["coalesced"]["k3_launches"],
                     max(k3_err, out["k3"]["max_abs_err"]), out["k3"]),
+        kernel_line("vm_counts_kinds",
+                    "pilosa_tpu_torch/ops/csrc/vm_counts_kinds.cu",
+                    "pilosa_tpu/ops/pallas_kernels.py:489",
+                    out["kinds"]["launches"]["vm_counts_kinds"],
+                    max(k3k_err, out["k3k"]["max_abs_err"]), out["k3k"]),
         kernel_line("row_counts_masked",
                     "pilosa_tpu_torch/ops/csrc/row_counts_masked.cu",
                     "pilosa_tpu/ops/pallas_kernels.py:145",

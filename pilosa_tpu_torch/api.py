@@ -1,8 +1,9 @@
 """API facade: the actions the HTTP handler exposes, on one node.
 
 Port of the single-node part of pilosa_tpu/api.py: query, index and
-field creation (set and int fields), bit import, value import and
-roaring import.  The cluster state
+field creation (set and int fields, and, as in the reference, fields of
+a type string it does not know, served as set fields), bit import,
+value import and roaring import into set fields.  The cluster state
 machine, key translation and replica fan-out are not part of the port
 yet; the node is always NORMAL.
 """
@@ -11,7 +12,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from pilosa_tpu_torch.models.field import FieldOptions, FieldType
+from pilosa_tpu_torch.models.field import (UNSERVED_TYPES, FieldOptions,
+                                           FieldType)
 from pilosa_tpu_torch.models.index import IndexOptions
 from pilosa_tpu_torch.models.view import VIEW_STANDARD
 from pilosa_tpu_torch.parallel.executor import ExecOptions
@@ -67,11 +69,14 @@ class API:
         if idx.field(name) is not None:
             raise ConflictError(f"field already exists: {name}")
         options = options or FieldOptions()
-        if options.type not in (FieldType.SET, FieldType.INT) or options.keys:
-            raise ApiError(f"only set and int fields without keys are "
-                           f"supported by this port yet, not "
-                           f"{options.type!r}"
-                           + (" with keys" if options.keys else ""))
+        # a type string the reference does not know is stored as given
+        # and served as a set field, as the reference does
+        if options.type in UNSERVED_TYPES:
+            raise ApiError(f"{options.type} fields are not supported by "
+                           f"this port yet")
+        if options.keys:
+            raise ApiError("fields with keys are not supported by this port "
+                           "yet")
         return idx.create_field(name, options)
 
     def import_bits(self, index: str, field: str, rows, cols,
@@ -104,28 +109,20 @@ class API:
                        views: dict[str, bytes], clear: bool = False) -> None:
         """Merge serialized roaring bitmaps into one shard's fragments
         (pilosa_tpu/api.py:470): a set field's standard view (named
-        ``""`` or ``"standard"``), or an int field's BSI view
-        ``bsig_<field>``, whose rows are the planes (0 exists, 1 sign,
-        2.. magnitude bits of base-relative values, below the field's
-        bit depth).  The reference refuses roaring imports into int
-        fields; the port takes the BSI view's planes, so that a large
-        value set loads as whole rows.  The existence field is left as it
-        is, as in the reference."""
+        ``""`` or ``"standard"``), or a time field's.  Like the reference,
+        every other field type is refused, and the existence field is
+        left as it is.  An int field's planes load in process through
+        ``Field.import_roaring`` with ``view="bsig_<field>"``."""
         f = self.field(index, field)
-        if f.options.type == FieldType.SET:
-            allowed = ("", VIEW_STANDARD)
-        elif f.options.type == FieldType.INT:
-            allowed = (f.bsi_view_name,)
-        else:
-            raise ApiError("roaring import is only supported for set and "
-                           "int fields by this port")
+        if f.options.type not in (FieldType.SET, FieldType.TIME):
+            raise ApiError("roaring import is only supported for set "
+                           "and time fields")
         for vname in views:
-            if vname not in allowed:
+            if vname not in ("", VIEW_STANDARD):
                 raise ApiError(f"view {vname!r} of field {field!r} is not "
                                f"supported by this port yet")
         for vname, data in views.items():
-            f.import_roaring(shard, data, clear=clear,
-                             view=vname or VIEW_STANDARD)
+            f.import_roaring(shard, data, clear=clear, view=VIEW_STANDARD)
 
     def state(self) -> str:
         return "NORMAL"

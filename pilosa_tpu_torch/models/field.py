@@ -8,9 +8,10 @@ set that the fused executor reads:
 - ``device_row_stack`` -- the dense int32 [n_shards, words] stack
   (pilosa_tpu/models/field.py:420-473);
 - ``device_container_leaf`` -- the pooled compressed form
-  (pilosa_tpu/models/field.py:827-984) in the all-bitmap layout: the
-  non-empty containers of every shard in one int32[_pow2(n + 1), 2048]
-  pool on the device, row ``n`` the all-zero absent container.
+  (pilosa_tpu/models/field.py:827-1050): the non-empty containers of
+  every shard in one int32[_pow2(n + 1), 2048] pool on the device, row
+  ``n`` the all-zero absent container, or, with [containers] kinds on
+  and any array or run container in the row, three compact kind pools.
 
 Both are cached in one plain per-field dict keyed on the fragments'
 ``(_uid, _gen)``; any write to a fragment makes its entries miss.  The
@@ -46,6 +47,7 @@ from pilosa_tpu_torch.models.view import VIEW_BSI_PREFIX, VIEW_STANDARD, View
 from pilosa_tpu_torch.ops import bitmap as bm
 from pilosa_tpu_torch.ops import bsi as bsi_ops
 from pilosa_tpu_torch.ops import containers as ct
+from pilosa_tpu_torch.ops import kindpools as kp
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
 
@@ -55,6 +57,18 @@ class FieldType:
     TIME = "time"
     MUTEX = "mutex"
     BOOL = "bool"
+
+
+#: the field types whose machinery the port does not have yet
+UNSERVED_TYPES = (FieldType.TIME, FieldType.MUTEX, FieldType.BOOL)
+
+
+def is_set_like(options) -> bool:
+    """True for a set field and for a type string the reference does not
+    know: its FieldOptions stores any type (pilosa_tpu/models/field.py:
+    178-190) and serves such a field's standard-view rows as a set
+    field's."""
+    return options.type not in (FieldType.INT,) + UNSERVED_TYPES
 
 
 DEFAULT_CACHE_TYPE = "ranked"
@@ -361,38 +375,95 @@ class Field:
         """One standard-view row across ``shards`` in pooled compressed
         form (ops/containers.ContainerLeaf).  A shard whose row is over
         the fill-ratio threshold gets a None directory entry, the
-        caller's evidence to route the query dense."""
+        caller's evidence to route the query dense.  With [containers]
+        kinds on, each container takes its cheapest kind and a row with
+        any array or run container splits into the three kind pools
+        (``_build_kinds_leaf``); an all-bitmap row keeps the one-pool
+        layout."""
         frags = [self.fragment(s) for s in shards]
-        # the threshold joins the token: a cached leaf froze each
-        # fragment's sparse-vs-hot verdict
-        gens = (ct.config().threshold,
+        # the threshold and the kind knobs join the token: a cached leaf
+        # froze each fragment's sparse-vs-hot verdict and its layout
+        cfg = ct.config()
+        kinds_on = bool(cfg.kinds)
+        gens = (cfg.threshold, kinds_on, cfg.array_max, cfg.run_cap,
                 *(_frag_gen(fr) for fr in frags))
 
         def build():
             entries: list = []
             starts: list[int] = []
+            kinds: list = []  # per shard: kind bytes, or None (hot row)
             blocks_list: list[np.ndarray] = []
             n = 0
             for fr in frags:
                 starts.append(n)
                 if fr is None:
                     entries.append(np.empty(0, dtype=np.int64))
+                    kinds.append(np.empty(0, dtype=np.uint8))
                     continue
-                rc = fr.row_containers(row_id)
+                rc = (fr.row_container_kinds(row_id) if kinds_on
+                      else fr.row_containers(row_id))
                 if rc is None:
                     entries.append(None)
+                    kinds.append(None)
                     continue
-                keys, blocks, _bits = rc
-                entries.append(keys)
-                if len(keys):
-                    blocks_list.append(blocks)
-                    n += len(keys)
+                entries.append(rc[0])
+                kinds.append(rc[3] if kinds_on else None)
+                if len(rc[0]):
+                    blocks_list.append(rc[1])
+                    n += len(rc[0])
+            if kinds_on:
+                flat_kinds = np.concatenate(
+                    [np.empty(0, dtype=np.uint8)]
+                    + [k for k in kinds if k is not None])
+                if bool((flat_kinds != 1).any()):
+                    return self._build_kinds_leaf(shards, entries, starts,
+                                                  kinds, blocks_list,
+                                                  flat_kinds)
             pool = ct.build_pool(blocks_list, n)
             return ct.ContainerLeaf(shards, entries, starts,
                                     bm.to_tensor(pool, self.device), n,
                                     pool.nbytes)
 
         return self._cached(("cont", row_id, shards), gens, build)
+
+    def _build_kinds_leaf(self, shards, entries, starts, kinds, blocks_list,
+                          flat_kinds):
+        """Split a mixed-kind directory into the per-kind compact pools
+        (ops/kindpools.split_pools) and assemble the kinds leaf
+        (pilosa_tpu/models/field.py:986).  Every pool keeps at least one
+        canonical empty tail row -- the absent-container gather target --
+        and pads its row count to pow2, as the bitmap pool does."""
+        flat_blocks = np.concatenate(blocks_list, axis=0)
+        slots_flat, bblocks, apool_t, acard_t, rpool_t = kp.split_pools(
+            flat_blocks, flat_kinds)
+        slots = []
+        off = 0
+        for ks in kinds:
+            if ks is None:
+                slots.append(None)
+                continue
+            slots.append(slots_flat[off:off + len(ks)])
+            off += len(ks)
+        bn, an, rn = (int(x.shape[0]) for x in (bblocks, apool_t, rpool_t))
+        pool = ct.build_pool([bblocks], bn)
+        apool = np.full((ct._pow2(an + 1), apool_t.shape[1]), kp.ARRAY_PAD,
+                        dtype=np.uint16)
+        apool[:an] = apool_t
+        acard = np.zeros(apool.shape[0], dtype=np.int32)
+        acard[:an] = acard_t
+        rpool = np.zeros((ct._pow2(rn + 1), rpool_t.shape[1]),
+                         dtype=np.uint16)
+        rpool[:, 0::2] = 1  # (1, 0): the canonical invalid pair
+        rpool[:rn] = rpool_t
+        nbytes = pool.nbytes + apool.nbytes + acard.nbytes + rpool.nbytes
+        dev = self.device
+        return ct.ContainerLeaf(
+            shards, entries, starts, bm.to_tensor(pool, dev), bn, nbytes,
+            kinds=kinds, slots=slots,
+            apool=torch.from_numpy(apool.view(np.int16)).to(dev),
+            acard=torch.from_numpy(acard).to(dev),
+            rpool=torch.from_numpy(rpool.view(np.int16)).to(dev),
+            an=an, rn=rn)
 
     #: largest matrix stack kept in the cache (bytes); a larger one is
     #: rebuilt per query (pilosa_tpu/models/field.py:1150)

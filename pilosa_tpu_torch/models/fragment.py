@@ -44,6 +44,7 @@ from pilosa_tpu_torch.models.cache import TopNCache
 from pilosa_tpu_torch.ops import bitmap as bm
 from pilosa_tpu_torch.ops import bsi as bsi_ops
 from pilosa_tpu_torch.ops import containers as ct
+from pilosa_tpu_torch.ops import kindpools as kp
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 from pilosa_tpu_torch.storage import roaring as rcodec
 
@@ -500,6 +501,20 @@ class Fragment:
                     blocks = grid[keys].copy()
                 self._container_cache[row] = (self._gen, keys, blocks, bits)
             return keys, blocks, bits
+
+    def row_container_kinds(self, row: int):
+        """``(keys, blocks, bits, kinds uint8[n])`` for one row:
+        ``row_containers`` plus the cheapest storage kind of each
+        container by the serializer's cost rule under the configured
+        [containers] array-max / run-cap (pilosa_tpu/models/fragment.py:
+        1368-1390).  None exactly when ``row_containers`` is None."""
+        trio = self.row_containers(row)
+        if trio is None:
+            return None
+        keys, blocks, bits = trio
+        cfg = ct.config()
+        return keys, blocks, bits, kp.pick_kinds(
+            blocks, array_max=cfg.array_max, run_cap=cfg.run_cap)
 
     # ----------------------------------------------------- TopN rank cache
 

@@ -15,16 +15,18 @@ from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
 
 class Row:
-    __slots__ = ("segments", "attrs", "keys", "exclude_columns")
+    __slots__ = ("segments", "attrs", "keys", "exclude_columns",
+                 "wants_column_attrs")
 
     def __init__(self, segments: dict[int, np.ndarray] | None = None):
         # shard -> uint32[SHARD_WIDTH/32]
         self.segments: dict[int, np.ndarray] = segments or {}
         self.attrs: dict = {}
         self.keys: list[str] = []
-        # serialization directive set by Options()/query params
-        # (reference execOptions excludeColumns)
+        # serialization directives set by Options()/query params
+        # (reference execOptions excludeColumns/columnAttrs)
         self.exclude_columns = False
+        self.wants_column_attrs = False
 
     def columns(self) -> np.ndarray:
         """Sorted absolute column ids."""

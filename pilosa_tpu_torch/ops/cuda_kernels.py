@@ -15,6 +15,16 @@ absolute register operands) and popcount the last register, as
 int32[B, D].  Source: ops/csrc/vm_counts.cu.  It is bound by bytes: 8
 KiB per gathered container.
 
+K3-kinds -- ``vm_counts_kinds`` replaces the Pallas kinds VM
+``_vm_counts_kinds_pallas`` (pilosa_tpu/ops/pallas_kernels.py:489-504),
+reached through ``vm_counts`` -> ``_vm_counts_kinds`` for a kind-split
+``containers.MegaPools`` bundle: K3's function over a virtual pool whose
+rows ``[0, Rb)`` are bitmap blocks, ``[Rb, Rb + Ra)`` sorted uint16 array
+rows and the rest uint16 (start, last) run rows, as int32[B, D].  The
+kernel decodes the array and run rows as it gathers each thread's slice,
+so no dense copy of them is written.  Source: ops/csrc/vm_counts_kinds.cu.
+It is bound by bytes: the compact rows the directory names.
+
 K4 -- ``row_counts_masked`` replaces the Pallas TopN scan
 ``_row_counts_kernel`` / ``_row_counts_masked_pallas``
 (pilosa_tpu/ops/pallas_kernels.py:131-162): ``out[r] = |mat[r] &
@@ -48,14 +58,15 @@ arrays, rows with a stride each, as a Python int summed in int64 on the
 card.  Source: ops/csrc/count_and.cu.  It is bound by bytes: both
 operands read once.
 
-All six sources are CUDA C++ for sm_90a, built by ops/nvcc_build.py at
+All seven sources are CUDA C++ for sm_90a, built by ops/nvcc_build.py at
 first use and bound with ctypes.  The wrappers take int32 word tensors
 (bit views of the reference's uint32 words).  On CUDA tensors they launch
 their kernel on the current stream, or raise -- a failed build or launch
 is never answered by the plain version.  On CPU tensors they compute the
 plain PyTorch version, which is how the CPU tests reach it:
 ``bitmap.gathered_pair_counts`` for K2, ``vm_counts_plain`` for K3,
-``bitmap.row_counts_masked_plain`` for K4,
+``vm_counts_kinds_plain`` for K3-kinds, ``bitmap.row_counts_masked_plain``
+for K4,
 ``bitmap.masked_matrix_counts_plain`` for K5, ``bsi_compare_plain`` for
 K6 and ``count_and_plain`` for K1.  ``<wrapper>.launches``
 counts kernel launches, process-wide, and nothing else.
@@ -69,6 +80,7 @@ import threading
 import torch
 
 from pilosa_tpu_torch.ops import bitmap as bm
+from pilosa_tpu_torch.ops import kindpools as kp
 from pilosa_tpu_torch.ops import nvcc_build
 
 CONTAINER_WORDS = 2048  # 32-bit words per 2^16-bit container
@@ -87,6 +99,8 @@ _ENTRIES = {
     "gathered_count_and": ("gathered_count_and_launch",
                            [_c, _i, _c, _c, _i, _c, _c, _i, _c]),
     "vm_counts": ("vm_counts_launch", [_c, _c, _c, _c, _i, _i, _i, _i, _c]),
+    "vm_counts_kinds": ("vm_counts_kinds_launch",
+                        [_c, _c, _c, _c, _c, _c, _c] + [_i] * 8 + [_c]),
     "row_counts_masked": ("row_counts_masked_launch",
                           [_c, _c, _c, _c, _i, _ll, _i, _c]),
     "masked_matrix_counts": ("masked_matrix_counts_launch",
@@ -197,21 +211,19 @@ def vm_smem_bytes(tape_len: int, slots: int) -> int:
     return (slots + tape_len) * 128 * 16 + (3 * tape_len + slots) * 4
 
 
-def _check_vm(pool: torch.Tensor, prog: torch.Tensor,
-              gidx: torch.Tensor) -> None:
-    """Types, layout, shapes and values of a K3 call.  ``prog`` and
-    ``gidx`` may lie on the pool's device or on the CPU, where the host
-    built them."""
-    for name, t in (("pool", pool), ("prog", prog), ("gidx", gidx)):
+def _check_program(prog: torch.Tensor, gidx: torch.Tensor, rows: int,
+                   device: torch.device) -> None:
+    """Types, layout, shapes and values of a VM program over a pool of
+    ``rows`` rows on ``device``.  ``prog`` and ``gidx`` may lie on that
+    device or on the CPU, where the host built them."""
+    for name, t in (("prog", prog), ("gidx", gidx)):
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, t in (("prog", prog), ("gidx", gidx)):
-        if t.device != pool.device and t.device.type != "cpu":
+        if t.device != device and t.device.type != "cpu":
             raise ValueError(f"{name} is on {t.device}, the pool on "
-                             f"{pool.device}")
-    _check_pool("pool", pool)
+                             f"{device}")
     if prog.dim() != 3 or prog.shape[2] != 3:
         raise ValueError(f"prog must be [B, T, 3], got {tuple(prog.shape)}")
     if gidx.dim() != 3 or gidx.shape[1] != prog.shape[0]:
@@ -230,9 +242,9 @@ def _check_vm(pool: torch.Tensor, prog: torch.Tensor,
                          f"memory, more than {VM_SMEM_LIMIT}")
     if gidx.numel():
         lo, hi = torch.aminmax(gidx)
-        if int(lo) < 0 or int(hi) >= pool.shape[0]:
-            raise IndexError(f"gidx entries must lie in [0, "
-                             f"{pool.shape[0]}), got [{int(lo)}, {int(hi)}]")
+        if int(lo) < 0 or int(hi) >= rows:
+            raise IndexError(f"gidx entries must lie in [0, {rows}), got "
+                             f"[{int(lo)}, {int(hi)}]")
     if prog.numel():
         # instruction t may read a leaf slot or an earlier output:
         # registers [0, slots + t)
@@ -244,6 +256,17 @@ def _check_vm(pool: torch.Tensor, prog: torch.Tensor,
         if bool(bad):
             raise ValueError("prog holds an opcode outside 0..4 or an "
                              "operand that is not an earlier register")
+
+
+def _check_vm(pool: torch.Tensor, prog: torch.Tensor,
+              gidx: torch.Tensor) -> None:
+    """Types, layout, shapes and values of a K3 call."""
+    if pool.dtype != torch.int32:
+        raise TypeError(f"pool must be int32, got {pool.dtype}")
+    if not pool.is_contiguous():
+        raise ValueError("pool must be contiguous")
+    _check_pool("pool", pool)
+    _check_program(prog, gidx, int(pool.shape[0]), pool.device)
 
 
 def vm_counts_plain(pool: torch.Tensor, prog: torch.Tensor,
@@ -314,6 +337,107 @@ def vm_counts(pool: torch.Tensor, prog: torch.Tensor,
 
 
 vm_counts.launches = 0
+
+
+# -------------------------------------------------------------- K3-kinds
+
+
+def _check_kinds(bpool: torch.Tensor, apool: torch.Tensor,
+                 acard: torch.Tensor, rpool: torch.Tensor,
+                 prog: torch.Tensor, gidx: torch.Tensor) -> None:
+    """Types, layout, shapes and values of a K3-kinds call: the bitmap
+    pool as K3's, int16 array rows [Ra, acap] with int32 [Ra]
+    cardinalities in [0, acap], int16 run rows [Rr, 2 * rcap], all on
+    one device, and the program over Rb + Ra + Rr virtual rows."""
+    dev = bpool.device
+    for name, t, dtype in (("bpool", bpool, torch.int32),
+                           ("apool", apool, torch.int16),
+                           ("acard", acard, torch.int32),
+                           ("rpool", rpool, torch.int16)):
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, bpool on {dev}")
+    _check_pool("bpool", bpool)
+    if apool.dim() != 2 or apool.shape[1] == 0:
+        raise ValueError(f"apool must be [Ra, acap >= 1], got "
+                         f"{tuple(apool.shape)}")
+    if acard.shape != (apool.shape[0],):
+        raise ValueError(f"acard must be [{apool.shape[0]}], got "
+                         f"{tuple(acard.shape)}")
+    if rpool.dim() != 2 or rpool.shape[1] == 0 or rpool.shape[1] % 2:
+        raise ValueError(f"rpool must be [Rr, 2 * rcap >= 2], got "
+                         f"{tuple(rpool.shape)}")
+    if acard.numel():
+        lo, hi = torch.aminmax(acard)
+        if int(lo) < 0 or int(hi) > apool.shape[1]:
+            raise ValueError(f"acard entries must lie in [0, "
+                             f"{apool.shape[1]}], got [{int(lo)}, {int(hi)}]")
+    rows = int(bpool.shape[0]) + int(apool.shape[0]) + int(rpool.shape[0])
+    if rows >= 2 ** 31:
+        raise ValueError("too many rows for int32 indices")
+    _check_program(prog, gidx, rows, dev)
+
+
+def vm_counts_kinds_plain(bpool: torch.Tensor, apool: torch.Tensor,
+                          acard: torch.Tensor, rpool: torch.Tensor,
+                          prog: torch.Tensor, gidx: torch.Tensor
+                          ) -> torch.Tensor:
+    """The plain version of K3-kinds, the reference's function written
+    out: decode the array and run pools with the plain torch decode
+    (ops/kindpools.py), put them behind the bitmap rows, run
+    ``vm_counts_plain``."""
+    pool = torch.cat([bpool, kp.decode_array(apool, acard),
+                      kp.decode_runs(rpool)])
+    return vm_counts_plain(pool, prog, gidx)
+
+
+def _vm_kinds_launch(bpool: torch.Tensor, apool: torch.Tensor,
+                     acard: torch.Tensor, rpool: torch.Tensor,
+                     prog: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:
+    """Launch K3-kinds on tensors already checked and on one card."""
+    n_q, tape_len, _ = prog.shape
+    slots, _, domain = gidx.shape
+    out = torch.empty((n_q, domain), dtype=torch.int32, device=bpool.device)
+    if out.numel() == 0:
+        return out
+    launch = _launcher("vm_counts_kinds")
+    with torch.cuda.device(bpool.device):
+        stream = torch.cuda.current_stream(bpool.device).cuda_stream
+        rc = launch(bpool.data_ptr(), apool.data_ptr(), acard.data_ptr(),
+                    rpool.data_ptr(), prog.data_ptr(), gidx.data_ptr(),
+                    out.data_ptr(), int(bpool.shape[0]),
+                    int(apool.shape[0]), int(apool.shape[1]),
+                    int(rpool.shape[1]) // 2, n_q, tape_len, slots, domain,
+                    stream)
+    if rc != 0:
+        raise RuntimeError(f"vm_counts_kinds launch failed: CUDA error {rc}")
+    return out
+
+
+def vm_counts_kinds(bpool: torch.Tensor, apool: torch.Tensor,
+                    acard: torch.Tensor, rpool: torch.Tensor,
+                    prog: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:
+    """Per-cell popcounts int32[B, D] of a batch of op-tapes over a
+    kind-split megapool (ops/containers.MegaPools): ``gidx`` int32[L, B,
+    D] addresses bitmap rows ``[0, Rb)``, array rows ``[Rb, Rb + Ra)``
+    and run rows after them.  CUDA pools launch K3-kinds, after copying a
+    host-built ``prog``/``gidx`` to their card; CPU pools compute
+    ``vm_counts_kinds_plain``.  Ticks no dispatch: the caller
+    (ops/tape.execute_vm) owns the one ``vm`` tick."""
+    _check_kinds(bpool, apool, acard, rpool, prog, gidx)
+    if bpool.device.type != "cuda":
+        return vm_counts_kinds_plain(bpool, apool, acard, rpool, prog, gidx)
+    out = _vm_kinds_launch(bpool, apool, acard, rpool,
+                           prog.to(bpool.device), gidx.to(bpool.device))
+    if out.numel():
+        _count(vm_counts_kinds)
+    return out
+
+
+vm_counts_kinds.launches = 0
 
 
 # ------------------------------------------------------------- K4, K5
@@ -644,8 +768,8 @@ count_and.launches = 0
 
 # ------------------------------------------------------------- accounting
 
-_KERNELS = (gathered_count_and, vm_counts, row_counts_masked,
-            masked_matrix_counts, bsi_compare, count_and)
+_KERNELS = (gathered_count_and, vm_counts, vm_counts_kinds,
+            row_counts_masked, masked_matrix_counts, bsi_compare, count_and)
 
 
 def launch_counts() -> dict[str, int]:

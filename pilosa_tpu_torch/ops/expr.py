@@ -12,9 +12,11 @@ tuple whose leaves are slot indices into the operand tuple:
 ``evaluate(shape, leaves)`` returns the int32 word stack,
 ``evaluate(shape, leaves, counts=True)`` the int32 per-row popcounts
 (the per-shard Count root).  ``evaluate_gathered`` is the container-pool
-variant: each leaf is gathered from its pool first.  The tree is plain
-torch bitwise ops plus the plain popcount; each evaluate ticks one
-``note_dispatch``, like the reference's one-launch program.
+variant: each leaf is gathered from its pool first;
+``evaluate_gathered_kinds`` the kind-split one, whose leaves gather
+bitmap, array and run rows and decode them (ops/kindpools.py).  The
+tree is plain torch bitwise ops plus the plain popcount; each evaluate
+ticks one ``note_dispatch``, like the reference's one-launch program.
 
 ``_host_tree`` / ``_host_counts`` are the numpy engine, copied from the
 reference (pilosa_tpu/ops/expr.py:503,530).
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.ops import bitmap as bm
+from pilosa_tpu_torch.ops import kindpools as kp
 
 _FOLD_NAMES = ("and", "or", "xor", "andnot")
 
@@ -136,4 +139,33 @@ def evaluate_gathered(shape: tuple, pools: tuple, idxs: tuple,
     bm.note_dispatch("fused_gather")
     leaves = tuple(bm.gather_rows(p, ix) for p, ix in zip(pools, idxs))
     out = _build(shape)(leaves)
+    return bm.row_counts_plain(out) if counts else out
+
+
+def evaluate_gathered_kinds(shape: tuple, leafops: tuple,
+                            counts: bool = False) -> torch.Tensor:
+    """Evaluate one tree over KIND-SPLIT container operands
+    (pilosa_tpu/ops/expr.py:676).  ``leafops[i]`` is ``("b", pool, ib)``
+    -- an all-bitmap leaf, gathered as in ``evaluate_gathered`` -- or
+    ``("k", bpool, apool, acard, rpool, ib, ia, ir)``, a kind-split leaf
+    whose three index vectors point at the lane's row in its own kind's
+    pool and at the other pools' empty rows, so gathering, decoding and
+    OR-ing rebuild the lane's block.  It is XLA in the reference; here
+    plain torch with the plain decode."""
+    _validate(shape, len(leafops))
+    bm.note_dispatch("fused_gather")
+    leaves = []
+    for op in leafops:
+        if op[0] == "b":
+            _, pool, ib = op
+            leaves.append(bm.gather_rows(pool, ib))
+            continue
+        _, bpool, apool, acard, rpool, ib, ia, ir = op
+        ia = ia.to(apool.device).to(torch.int64)
+        ir = ir.to(rpool.device).to(torch.int64)
+        leaves.append(bm.gather_rows(bpool, ib)
+                      | kp.decode_array(apool.index_select(0, ia),
+                                        acard.index_select(0, ia))
+                      | kp.decode_runs(rpool.index_select(0, ir)))
+    out = _build(shape)(tuple(leaves))
     return bm.row_counts_plain(out) if counts else out

@@ -287,13 +287,14 @@ def execute(batch: Sequence[tuple[Tape, tuple]], counts: bool = False,
     return [_one_query(tp, ls, counts) for tp, ls in batch]
 
 
-def execute_vm(batch: Sequence[tuple[Tape, list]], pool: torch.Tensor,
+def execute_vm(batch: Sequence[tuple[Tape, list]], pool,
                zero_index: int, tape_len: int | None = None,
                slots: int | None = None,
                max_prefetch: int | None = None) -> list[np.ndarray]:
     """Execute a megabatch of (Tape, gather rows) queries over ONE pooled
-    compressed operand as ONE bitmap-VM launch (ops/cuda_kernels
-    ``vm_counts``).
+    compressed operand as ONE bitmap-VM launch: ops/cuda_kernels
+    ``vm_counts`` (K3) over a plain pool, ``vm_counts_kinds`` (K3-kinds)
+    over a kind-split ``containers.MegaPools`` bundle.
 
     Each query's second element is its per-leaf-slot list of int32[D]
     GLOBAL pool row indices (ops/containers.megapool); every query shares
@@ -330,8 +331,13 @@ def execute_vm(batch: Sequence[tuple[Tape, list]], pool: torch.Tensor,
     prog, gidx = vm_program(batch, zero_index, tape_len, slots)
     with _lock:
         _vm_lowered.add((b_pad, tape_len, slots, D))
-    cts = cuda_kernels.vm_counts(pool, torch.from_numpy(prog),
-                                 torch.from_numpy(gidx))
+    prog_t, gidx_t = torch.from_numpy(prog), torch.from_numpy(gidx)
+    if isinstance(pool, torch.Tensor):
+        cts = cuda_kernels.vm_counts(pool, prog_t, gidx_t)
+    else:  # a kind-split containers.MegaPools bundle: K3-kinds
+        cts = cuda_kernels.vm_counts_kinds(pool.bpool, pool.apool,
+                                           pool.acard, pool.rpool, prog_t,
+                                           gidx_t)
     cts = cts.to("cpu").numpy().astype(np.int64)
     return [cts[i] for i in range(n)]
 

@@ -13,7 +13,8 @@ different trees share a window:
 
 - a query whose every leaf stages compressed (ops/containers.stage_vm)
   joins a ``("vm", tape_len, slots)`` bucket, which runs as ONE launch
-  of the bitmap VM, K3 (ops/tape.execute_vm);
+  of the bitmap VM (ops/tape.execute_vm): K3 over all-bitmap leaves,
+  K3-kinds when a leaf holds array or run containers;
 - any other query stages dense row stacks and joins a ``("ragged",
   stack shape, tape_len, slots)`` bucket -- or, with ``[ragged]`` off or
   a tape over the caps, the exact ``(index, shape, shards)`` bucket.
@@ -251,7 +252,8 @@ class Coalescer:
         """The VM bucket: the distinct leaves concatenate into ONE
         megapool, each entry's local gather rows globalize against it
         (re-padded to the bucket-wide domain width with the zero row),
-        and the whole heterogeneous batch runs as one K3 launch (or as
+        and the whole heterogeneous batch runs as one K3 launch, or one
+        K3-kinds launch when a leaf holds array or run containers (or as
         many as the ``max_prefetch`` halving makes)."""
         tb, lb = _tape.size_class(
             max(len(it.tape.instrs) for it in live),
@@ -264,7 +266,22 @@ class Coalescer:
             rows = []
             for lf, ix in zip(it.vm.leaves, it.vm.idxs):
                 g = np.full(D, zero, dtype=np.int32)
-                g[:len(ix)] = bases[lf.uid] + ix
+                base = bases[lf.uid]
+                if isinstance(ix, tuple):
+                    # kind-split staging: each lane's row in the bundle's
+                    # virtual row space (containers.MegaPools); absent
+                    # lanes take the bitmap base, their ib the leaf's
+                    # zero row
+                    kv, ib, ia, ir = ix
+                    bb, ab, rb = base
+                    g[:len(ib)] = np.where(
+                        kv == 2, ab + ia, np.where(kv == 3, rb + ir, bb + ib))
+                else:
+                    # a query of all-bitmap leaves in a bucket whose
+                    # megapool is a kinds bundle reads its bitmap rows
+                    if isinstance(base, tuple):
+                        base = base[0]
+                    g[:len(ix)] = base + ix
                 rows.append(g)
             vbatch.append((it.tape, rows))
         return _tape.execute_vm(vbatch, pool, zero, tape_len=tb, slots=lb,

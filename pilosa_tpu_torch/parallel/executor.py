@@ -57,7 +57,8 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch import device as devmod
-from pilosa_tpu_torch.models.field import FieldType
+from pilosa_tpu_torch.models.field import (UNSERVED_TYPES, FieldType,
+                                           is_set_like)
 from pilosa_tpu_torch.models.row import Row
 from pilosa_tpu_torch.models.view import VIEW_STANDARD
 from pilosa_tpu_torch.ops import bitmap as bm
@@ -187,7 +188,7 @@ class Executor:
         f = idx.field(name)
         if f is None:
             raise ExecutionError(f"field not found: {name}")
-        if f.options.type not in (FieldType.SET, FieldType.INT):
+        if f.options.type in UNSERVED_TYPES:
             raise ExecutionError(f"field {name!r} is a {f.options.type} "
                                  f"field, which this port does not serve yet")
         return f
@@ -233,7 +234,7 @@ class Executor:
             if "from" in call.args or "to" in call.args:
                 return False
             f = idx.field(fname)
-            return f is not None and f.options.type == FieldType.SET
+            return f is not None and is_set_like(f.options)
         if name == "Not":
             return (len(call.children) == 1
                     and idx.existence_field() is not None
@@ -951,11 +952,15 @@ class Executor:
         if len(call.children) != 1:
             raise ExecutionError("Options() requires a single child query")
         new_opt = replace(opt)
+        column_attrs = False
         for key, value in call.args.items():
-            if key in ("columnAttrs", "excludeRowAttrs"):
-                raise ExecutionError(f"Options({key}=...): attributes are "
-                                     f"not supported by this port yet")
-            if key == "excludeColumns":
+            # the port keeps no attributes: both attribute options answer
+            # as the reference does with none set
+            if key == "columnAttrs":
+                column_attrs = bool(value)
+            elif key == "excludeRowAttrs":
+                pass
+            elif key == "excludeColumns":
                 new_opt.exclude_columns = bool(value)
             elif key == "shards":
                 if not isinstance(value, list):
@@ -966,5 +971,6 @@ class Executor:
         res = self._execute_call(idx, call.children[0], shards, new_opt)
         if isinstance(res, Row):
             res.exclude_columns = new_opt.exclude_columns
+            res.wants_column_attrs = column_attrs
         return res
 

@@ -235,7 +235,15 @@ class Handler:
             for r in results:
                 if isinstance(r, Row):
                     r.exclude_columns = True
-        self._json(req, {"results": [serialize_result(r) for r in results]})
+        resp = {"results": [serialize_result(r) for r in results]}
+        # ?columnAttrs=true, or Options(columnAttrs=true) around a Row:
+        # the reference adds the result columns' attribute sets
+        # (pilosa_tpu/server/handler.py:823-845).  The port keeps no
+        # column attributes, so the list is always empty.
+        if params.get("columnAttrs") == "true" or any(
+                isinstance(r, Row) and r.wants_column_attrs for r in results):
+            resp["columnAttrs"] = []
+        self._json(req, resp)
 
     @route("GET", "/debug/ragged")
     def handle_debug_ragged(self, req, params, path, body):

@@ -8,6 +8,13 @@ The coalescer knobs and their defaults are the reference's
 (``[coalescer]``, ``[ragged]`` and ``[vm]``, pilosa_tpu/config.py:166-221;
 server.py:235-250).  ``coalescer_enabled="auto"`` turns batching on
 when the node runs on a CUDA card.
+
+The ``[containers]`` kind knobs ``containers_kinds``,
+``containers_array_max`` and ``containers_run_cap`` (server.py:94-96)
+are process-wide, as in the reference: ``open`` takes a reference on the
+config (the first one snapshots the config in force) and applies the
+knobs given; ``close`` gives it back, and the last one restores the
+snapshot.  ``None`` keeps the value in force (default: kinds on).
 """
 
 from __future__ import annotations
@@ -32,7 +39,10 @@ class Server:
                  ragged_max_leaves: int = tape.DEFAULT_MAX_LEAVES,
                  vm_enabled: bool = True,
                  vm_min_domain: int = containers.VM_MIN_DOMAIN,
-                 vm_max_prefetch: int = containers.VM_MAX_PREFETCH):
+                 vm_max_prefetch: int = containers.VM_MAX_PREFETCH,
+                 containers_kinds: bool | None = None,
+                 containers_array_max: int | None = None,
+                 containers_run_cap: int | None = None):
         self.device = devmod.resolve(device)
         self.data_dir = data_dir
         self.host = host
@@ -45,6 +55,10 @@ class Server:
             max_tape=ragged_max_tape, max_leaves=ragged_max_leaves,
             vm=vm_enabled, vm_min_domain=vm_min_domain,
             vm_max_prefetch=vm_max_prefetch)
+        self._containers_knobs = {"kinds": containers_kinds,
+                                  "array_max": containers_array_max,
+                                  "run_cap": containers_run_cap}
+        self._containers_retained = False
         self.holder: Holder | None = None
         self.executor: Executor | None = None
         self.api: API | None = None
@@ -56,14 +70,20 @@ class Server:
 
     def open(self) -> "Server":
         """Open the data directory and start serving HTTP."""
-        self.holder = Holder(self.data_dir, device=self.device)
+        containers.retain()
+        self._containers_retained = True
+        containers.configure(**self._containers_knobs)
         try:
+            self.holder = Holder(self.data_dir, device=self.device)
             self.executor = Executor(self.holder, device=self.device)
             self.executor.coalescer = self.coalescer
             self.api = API(self.holder, self.executor)
             self.handler = Handler(self.api, self.host, self.port)
         except BaseException:
-            self.holder.close()
+            if self.holder is not None:
+                self.holder.close()
+                self.holder = None
+            self._release_containers()
             raise
         self.handler.serve_background()
         return self
@@ -75,3 +95,9 @@ class Server:
         if self.holder is not None:
             self.holder.close()
             self.holder = None
+        self._release_containers()
+
+    def _release_containers(self) -> None:
+        if self._containers_retained:
+            self._containers_retained = False
+            containers.release()

@@ -223,18 +223,33 @@ def encode(keys: np.ndarray, words: np.ndarray, flags: int = 0) -> bytes:
     return _encode_py(keys, words, flags)
 
 
+def _container_stats(words: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(cardinality, maximal-run count) of every dense container
+    (uint64[n, 1024]), by word algebra: a run starts at each set bit
+    whose lower neighbour is clear."""
+    w = words.view(np.uint32)
+    cards = np.bitwise_count(w).sum(axis=1, dtype=np.int64)
+    carry = np.zeros_like(w)
+    carry[:, 1:] = w[:, :-1] >> np.uint32(31)
+    rises = w & ~((w << np.uint32(1)) | carry)
+    return cards, np.bitwise_count(rises).sum(axis=1, dtype=np.int64)
+
+
 def _encode_py(keys: np.ndarray, words: np.ndarray, flags: int) -> bytes:
     plans = []
+    cards, n_runs = _container_stats(words)
     for i in range(len(keys)):
-        w = words[i]
-        card = int(np.bitwise_count(w).sum())
+        card, runs = int(cards[i]), int(n_runs[i])
         if card == 0:
             continue
-        bits = np.unpackbits(w.view(np.uint8), bitorder="little")
-        starts = np.nonzero(np.diff(np.concatenate(([0], bits))) == 1)[0]
-        ends = np.nonzero(np.diff(np.concatenate((bits, [0]))) == -1)[0]
-        runs = len(starts)
+        w = words[i]
         typ = _WIRE_TYPE[pick_kind(card, runs)]
+        bits = starts = ends = None
+        if typ != 2:  # only array and run containers need the bits
+            bits = np.unpackbits(w.view(np.uint8), bitorder="little")
+        if typ == 3:
+            starts = np.nonzero(np.diff(np.concatenate(([0], bits))) == 1)[0]
+            ends = np.nonzero(np.diff(np.concatenate((bits, [0]))) == -1)[0]
         plans.append((int(keys[i]), card, typ, runs, w, bits, starts, ends))
 
     out = bytearray()

@@ -68,6 +68,7 @@ def _reference_configuration():
     jct.reset()
     jct.configure(kinds=False)
     tct.reset()
+    tct.configure(kinds=False)
     resultcache.cache().enabled = False
     jtape.reset_counters()
     ttape.reset_counters()

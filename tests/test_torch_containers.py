@@ -49,6 +49,7 @@ def _single_device_all_bitmap():
     jct.reset()
     jct.configure(kinds=False)
     tct.reset()
+    tct.configure(kinds=False)
     resultcache.cache().enabled = False
     yield
     meshexec.configure(enabled=mesh_was)

@@ -1,10 +1,13 @@
 """Tests of the port that need an NVIDIA card: the CUDA kernels K2
-(``gathered_count_and``), K3 (``vm_counts``, the bitmap VM), K4
+(``gathered_count_and``), K3 (``vm_counts``, the bitmap VM), K3-kinds
+(``vm_counts_kinds``, the VM over array and run containers), K4
 (``row_counts_masked``, the TopN scan), K5 (``masked_matrix_counts``,
 the GroupBy count), K6 (``bsi_compare``, the BSI ripple) and K1
 (``count_and``) against their plain versions, the executor's
 ``Count(Intersect(Row, Row))`` route launching K2 on ``cuda`` pools, a
-coalesced heterogeneous batch launching K3 once, TopN and GroupBy
+coalesced heterogeneous batch launching K3 once (both with container
+kinds off, so that the sparse rows stay bitmap blocks), a coalesced
+batch over array, run and bitmap rows launching K3-kinds once, TopN and GroupBy
 launching K4 and K5, and an int field's range rows and aggregates
 launching K6, K4 and K1 where the CPU tests see their dispatch sites.
 
@@ -27,7 +30,9 @@ import torch
 
 from pilosa_tpu_torch.models.holder import Holder
 from pilosa_tpu_torch.ops import bitmap as bm
+from pilosa_tpu_torch.ops import containers
 from pilosa_tpu_torch.ops import cuda_kernels as ck
+from pilosa_tpu_torch.ops import kindpools as kp
 from pilosa_tpu_torch.ops import tape
 from pilosa_tpu_torch.parallel.coalescer import Coalescer
 from pilosa_tpu_torch.parallel.executor import ExecOptions, Executor
@@ -41,6 +46,16 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
     return torch.device("cuda", 0)
+
+
+@pytest.fixture
+def bitmap_containers():
+    """[containers] kinds off for one test: its sparse rows stay bitmap
+    blocks.  Restores the one field it sets."""
+    was = containers.config().kinds
+    containers.configure(kinds=False)
+    yield
+    containers.configure(kinds=was)
 
 
 def _pools(seed: int, na: int, nb: int):
@@ -84,7 +99,8 @@ def test_k2_refuses_operands_on_two_devices(cuda_device):
 
 
 @pytest.mark.cuda
-def test_count_intersect_on_cuda_launches_k2_once(cuda_device):
+def test_count_intersect_on_cuda_launches_k2_once(cuda_device,
+                                                  bitmap_containers):
     rng = np.random.default_rng(5)
     n_shards = 3
     h = Holder(None, device=cuda_device)
@@ -157,7 +173,8 @@ def test_k3_refuses_an_index_past_the_pool(cuda_device):
 
 
 @pytest.mark.cuda
-def test_a_coalesced_heterogeneous_batch_launches_k3_once(cuda_device):
+def test_a_coalesced_heterogeneous_batch_launches_k3_once(
+        cuda_device, bitmap_containers):
     import threading
 
     rng = np.random.default_rng(9)
@@ -195,6 +212,140 @@ def test_a_coalesced_heterogeneous_batch_launches_k3_once(cuda_device):
         t.join(timeout=120)
     assert got == {q: len(s) for q, s in qs.items()}
     assert ck.vm_counts.launches - before == \
+        tape.counters()["vm.executions"] == 1
+    h.close()
+
+
+def _kind_blocks(rng, n: int) -> np.ndarray:
+    """n dense containers cycling through array, run and bitmap styles,
+    with the boundary bits 0 and 65535 in some."""
+    blocks = np.zeros((n, CW), dtype=np.uint32)
+    for i in range(n):
+        style = i % 3
+        if style == 0:
+            pos = rng.choice(1 << 16, int(rng.integers(1, 4000)),
+                             replace=False)
+        elif style == 1:
+            starts = np.sort(rng.choice((1 << 16) // 256,
+                                        int(rng.integers(1, 200)),
+                                        replace=False)) * 256
+            pos = np.concatenate([np.arange(s0, s0 + int(rng.integers(
+                1, 250))) for s0 in starts])
+        else:
+            pos = rng.choice(1 << 16, 20000, replace=False)
+        if i % 7 == 0:
+            pos = np.concatenate([pos, [0, 65535]])
+        w = np.zeros(CW, dtype=np.uint32)
+        np.bitwise_or.at(w, pos >> 5, np.uint32(1) << (pos & 31).astype(
+            np.uint32))
+        blocks[i] = w
+    return blocks
+
+
+def _kinds_case(seed: int, n_blocks: int, slots: int, tape_len: int,
+                n_q: int, domain: int, device):
+    """A kind-split megapool from seeded containers (each pool's last
+    row its canonical empty row), random SSA programs over all five
+    opcodes and a directory whose last slot gathers the zero row."""
+    rng = np.random.default_rng(seed)
+    blocks = _kind_blocks(rng, n_blocks)
+    _s, bb, ap, ac, rp = kp.split_pools(blocks, kp.pick_kinds(blocks))
+    bpool = np.concatenate([bb, np.zeros((1, CW), np.uint32)])
+    apool = np.concatenate([ap, np.full((1, ap.shape[1]), 0xFFFF,
+                                        np.uint16)])
+    acard = np.concatenate([ac, np.zeros(1, np.int32)])
+    pad = np.zeros((1, rp.shape[1]), np.uint16)
+    pad[:, 0::2] = 1
+    rpool = np.concatenate([rp, pad])
+    rows = len(bpool) + len(apool) + len(rpool)
+    prog = np.zeros((n_q, tape_len, 3), dtype=np.int32)
+    for q in range(n_q):
+        for t in range(tape_len):
+            prog[q, t] = (rng.integers(5), rng.integers(slots + t),
+                          rng.integers(slots + t))
+    gidx = rng.integers(0, rows, size=(slots, n_q, domain)).astype(np.int32)
+    gidx[slots - 1] = len(bpool) - 1
+    return (bm.to_tensor(bpool, device),
+            torch.from_numpy(apool.view(np.int16)).to(device),
+            torch.from_numpy(acard).to(device),
+            torch.from_numpy(rpool.view(np.int16)).to(device),
+            torch.from_numpy(prog), torch.from_numpy(gidx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_blocks,slots,tape_len,n_q,domain", [
+    (3, 1, 1, 1, 1), (30, 4, 4, 4, 8), (60, 16, 32, 2, 16),
+    # the containers of 2^20-column rows: 16 per shard, 256 shards
+    (4096, 4, 4, 8, 512)])
+def test_k3_kinds_matches_its_plain_version(cuda_device, n_blocks, slots,
+                                            tape_len, n_q, domain):
+    args = _kinds_case(n_blocks + slots, n_blocks, slots, tape_len, n_q,
+                       domain, cuda_device)
+    before = ck.vm_counts_kinds.launches
+    got = ck.vm_counts_kinds(*args)
+    torch.cuda.synchronize()
+    assert ck.vm_counts_kinds.launches == before + 1
+    want = ck.vm_counts_kinds_plain(*args)
+    assert torch.equal(got, want)
+    cpu = [a.cpu() for a in args]
+    assert np.array_equal(got.cpu().numpy(),
+                          ck.vm_counts_kinds(*cpu).numpy())
+
+
+@pytest.mark.cuda
+def test_k3_kinds_refuses_an_index_past_the_pools(cuda_device):
+    bpool, apool, acard, rpool, prog, gidx = _kinds_case(
+        4, 9, 2, 2, 1, 4, cuda_device)
+    gidx[0, 0, 3] = bpool.shape[0] + apool.shape[0] + rpool.shape[0]
+    with pytest.raises(IndexError):
+        ck.vm_counts_kinds(bpool, apool, acard, rpool, prog, gidx)
+
+
+@pytest.mark.cuda
+def test_a_mixed_kind_coalesced_batch_launches_k3_kinds_once(cuda_device):
+    import threading
+
+    rng = np.random.default_rng(19)
+    n_shards = 3
+    h = Holder(None, device=cuda_device)
+    idx = h.create_index("i")
+    f = idx.create_field("f")
+    width = n_shards * SHARD_WIDTH
+    cols = {1: rng.choice(width, size=width // 1000, replace=False),
+            2: np.concatenate([np.arange(s, s + 512) for s in range(
+                0, width, 8192)]),
+            3: rng.choice(width, size=width // 12, replace=False)}
+    for r, c in cols.items():
+        f.import_bits(np.full(len(c), r), c)
+    kinds = {int(k) for r in cols for s in range(n_shards)
+             for k in f.fragment(s).row_container_kinds(r)[3]}
+    assert kinds == {1, 2, 3}  # array, bitmap and run rows
+    sets = {r: set(c.tolist()) for r, c in cols.items()}
+    qs = {"Count(Intersect(Row(f=1), Row(f=2)))": sets[1] & sets[2],
+          "Count(Union(Row(f=1), Row(f=3)))": sets[1] | sets[3],
+          "Count(Difference(Row(f=3), Row(f=1), Row(f=2)))":
+              sets[3] - sets[1] - sets[2],
+          "Count(Xor(Row(f=2), Row(f=3)))": sets[2] ^ sets[3]}
+    ex = Executor(h, device=cuda_device)
+    ex.coalescer = Coalescer(window_s=2.0, max_batch=len(qs),
+                             device=cuda_device)
+    tape.reset_counters()
+    before = (ck.vm_counts.launches, ck.vm_counts_kinds.launches)
+    bar = threading.Barrier(len(qs))
+    got = {}
+
+    def run(q):
+        bar.wait()
+        got[q] = ex.execute("i", q)[0]
+
+    ts = [threading.Thread(target=run, args=(q,)) for q in qs]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=120)
+    assert got == {q: len(s) for q, s in qs.items()}
+    assert ck.vm_counts.launches == before[0]
+    assert ck.vm_counts_kinds.launches - before[1] == \
         tape.counters()["vm.executions"] == 1
     h.close()
 

@@ -311,14 +311,17 @@ def test_value_import_refuses_floats_and_values_out_of_range(servers):
         assert got[0] == want[0] == 400, (body, got, want)
 
 
-def test_roaring_import_of_plane_rows_equals_value_import(tmp_path):
-    """The port takes an int field's planes through import-roaring with
-    ``{"views": {"bsig_<field>": ...}}``: the same values as through
-    import-value give the same answers."""
+def test_roaring_import_of_plane_rows_equals_value_import(servers, tmp_path):
+    """An int field's planes load in process through
+    ``Field.import_roaring(shard, blob, view="bsig_<field>")``: the same
+    values as through import-value give the same answers.  Over HTTP,
+    import-roaring into an int field answers the reference's 400 and
+    writes nothing."""
     import base64
 
     from pilosa_tpu_torch.storage import roaring as troaring
 
+    js, _ts, _data = servers
     rng = np.random.default_rng(5)
     cols = rng.choice(SHARD_WIDTH, size=500, replace=False)
     vals = rng.integers(-1000, 1001, size=len(cols))
@@ -341,13 +344,20 @@ def test_roaring_import_of_plane_rows_equals_value_import(tmp_path):
             [p + r * SHARD_WIDTH for r, p in enumerate(pos)])).astype(
             np.uint64)
         keys, words = troaring.positions_to_containers(positions)
-        blob = base64.b64encode(troaring.encode(keys, words)).decode()
-        raw = json.dumps({"views": {"bsig_b": blob}}).encode()
-        assert post(ts.uri, "/index/i/field/b/import-roaring/0",
-                    raw)[0] == 200
-        bad = json.dumps({"views": {"standard": blob}}).encode()
-        assert post(ts.uri, "/index/i/field/b/import-roaring/0",
-                    bad)[0] == 400
+        blob = troaring.encode(keys, words)
+        b64 = base64.b64encode(blob).decode()
+        # the wire refuses it as the reference does, for either view
+        for fname, view in (("b", "bsig_b"), ("b", "standard")):
+            raw = json.dumps({"views": {view: b64}}).encode()
+            got = post(ts.uri, f"/index/i/field/{fname}/import-roaring/0",
+                       raw)
+            jraw = json.dumps({"views": {"bsig_v": b64}}).encode()
+            want = post(js.uri, "/index/i/field/v/import-roaring/0", jraw)
+            assert got == want, (view, got, want)
+            assert want[0] == 400
+        assert _count(ts, "Count(Row(b != null))") == [0]
+        ts.holder.index("i").field("b").import_roaring(0, blob,
+                                                       view="bsig_b")
         for q in ("Count(Row({} > 10))", "Sum(field={})", "Min(field={})",
                   "Row(-5 < {} < 300)"):
             assert (_count(ts, q.format("a")) == _count(ts, q.format("b"))), q
