@@ -25,8 +25,12 @@ PyTorch version on the card:
 4b. K3-kinds check: ``vm_counts_kinds`` against its plain version on
    seeded kind-split megapools (array, run and bitmap containers with
    bits 0 and 65535): B=1 D=1; (L, T) = (4, 4) and the caps (16, 32);
-   pad rows and slots; each kind's pool empty in turn; 4096 containers,
-   bit-exact;
+   pad rows and slots; each kind's pool empty in turn; 4096 containers;
+   and the decode's edges from tests/torch_kinds_edges.py (values and runs
+   on the kernel's pass and warp boundaries, full and empty arrays, 256
+   runs, a run of one bit, two runs in one word) at (4, 4), the caps and
+   (L, T) = (64, 32), every edge row alone, and run rows re-padded to a
+   wider rcap, bit-exact;
 5. the K2 path: a ``cuda`` Server (coalescer on by default) on a
    temporary directory; field f's rows 1-3 at 8 % fill and row 4 at 50 %
    imported through ``POST .../import-roaring/{shard}``; each query once
@@ -91,7 +95,11 @@ PyTorch version on the card:
    Count's inputs and K1 on a filtered Sum's, both recorded from step
    11, K3-kinds on one launch of ``KINDS_TIMED_BATCH`` queries recorded
    from step 11b (CUDA events around each launch, L2 flushed before
-   each), beside their plain versions and their bounds.
+   each), beside their plain versions and their bounds; then K3-kinds and
+   K3 each on a fixed launch made from the seed, whatever the coalescer
+   flushed: B=4, D=4096, (L, T) = (4, 4), four of the rounds' tree shapes
+   over arrays at ~0.1 %, 16 runs of 512 and bitmaps at 8 % (K3-kinds),
+   or over bitmap rows at 8 % (K3).
 
 Latencies are host-clock times; each is reported as the median with its
 10th and 90th percentiles and the sample count.
@@ -139,6 +147,8 @@ K2_CYCLES_PER_WORD = BITWISE_CYCLES + POPC_CYCLES + BITWISE_CYCLES
 FILL_SPARSE = 5243  # of 65536: rows at ~8 % fill
 TIMED_LAUNCHES = 200
 PLAIN_LAUNCHES = 50
+#: host-clock calls of K3-kinds' tape plan, cold and cached
+HOST_PLAN_CALLS = 50
 K3_PLAIN_LAUNCHES = 10
 WARM_RUNS = 300
 ROUNDS = 60
@@ -161,6 +171,9 @@ KIND_RUN_LEN = 512  # ...of this many columns each (12.5 % fill)
 KINDS_WARM = 30  # warm runs of each kinds-leg query
 KINDS_ROUNDS = 30  # coalesced rounds over kinds-mixed shapes
 KINDS_TIMED_BATCH = 4  # queries in the timed K3-kinds launch
+FIXED_B = 4  # queries of the fixed-shape K3 and K3-kinds launches...
+FIXED_D = 4096  # ...one container per slot of a 2^20-column row x 256
+FIXED_TREES = (0, 5, 9, 12)  # which of the 16 tree shapes they run
 
 _OPS = {"and": "Intersect", "or": "Union", "andnot": "Difference",
         "xor": "Xor"}
@@ -1108,18 +1121,17 @@ def phase_k5_time(torch, ck, bm, probe, card: dict) -> dict:
                           for k, v in k5.items()}}
 
 
-def phase_k3_time(torch, ck, tape, flush, card: dict) -> dict:
-    """K3 on the inputs of one real flush of the coalesced path."""
-    batch, pool, zero, tb, lb = flush
-    prog_np, gidx_np = tape.vm_program(batch, zero, tb, lb)
+def k3_timing(torch, ck, label: str, live: int, pool, prog_np, gidx_np,
+              zero: int, card: dict) -> dict:
+    """K3 on one launch's inputs (``live`` real queries), against its
+    plain version and its bound."""
     prog = torch.from_numpy(prog_np).to(pool.device)
     gidx = torch.from_numpy(gidx_np).to(pool.device)
     got = ck.vm_counts(pool, prog, gidx)
     want = ck.vm_counts_plain(pool, prog, gidx)
     torch.cuda.synchronize()
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-    check(err == 0, "K3 differs from its plain version on the coalesced "
-                    "path's inputs")
+    check(err == 0, f"K3 differs from its plain version on {label}")
     flush_buf = torch.zeros(64 << 20, dtype=torch.int32, device=pool.device)
     k3 = time_ms(torch, lambda: ck._vm_launch(pool, prog, gidx),
                  TIMED_LAUNCHES, flush_buf)
@@ -1127,7 +1139,6 @@ def phase_k3_time(torch, ck, tape, flush, card: dict) -> dict:
                     K3_PLAIN_LAUNCHES, flush_buf)
     n_q, tape_len, _ = prog_np.shape
     slots, _, domain = gidx_np.shape
-    live = len(batch)
     # bytes: each pool row the directory names, read once (queries of a
     # launch that read the same leaf name the same rows, and every pad
     # entry names the zero row), the program, the directory and the counts
@@ -1142,21 +1153,73 @@ def phase_k3_time(torch, ck, tape, flush, card: dict) -> dict:
               * (tape_len * BITWISE_CYCLES + POPC_CYCLES + BITWISE_CYCLES))
     ops_ms = cycles / card["sm_cycles"] * 1e3
     ms = k3["median"]
-    log(f"K3 timing: one flush of {live} queries, B={n_q} T={tape_len} "
+    bound = max(bytes_ms, ops_ms)
+    log(f"K3 timing, {label}: {live} queries, B={n_q} T={tape_len} "
         f"L={slots} D={domain}, pool {pool.shape[0]} rows, {real_entries} "
         f"gathered containers over {rows_read} distinct rows, {nbytes} "
         f"bytes; kernel {fmt(k3, 1e3, 'us')} "
         f"({nbytes / ms / 1e6:.1f} GB/s at the median), plain "
         f"{fmt(plain, 1e3, 'us')}, bound {bytes_ms * 1e3:.2f} us by bytes, "
-        f"{ops_ms * 1e3:.2f} us by operations")
+        f"{ops_ms * 1e3:.2f} us by operations; {100 * bound / ms:.1f} % of "
+        f"the bound")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain["median"],
-            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_ms": bound,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "spread_us": {k: v * 1e3 if k != "n" else v
                           for k, v in k3.items()},
             "shape": {"B": n_q, "live": live, "T": tape_len, "L": slots,
                       "D": domain, "pool_rows": int(pool.shape[0]),
                       "gathered": real_entries, "distinct_rows": rows_read}}
+
+
+def phase_k3_time(torch, ck, tape, flush, card: dict) -> dict:
+    """K3 on the inputs of one real flush of the coalesced path."""
+    batch, pool, zero, tb, lb = flush
+    prog_np, gidx_np = tape.vm_program(batch, zero, tb, lb)
+    return k3_timing(torch, ck, "one flush of the coalesced path",
+                     len(batch), pool, prog_np, gidx_np, zero, card)
+
+
+def tree_shape(tree, leaves: list):
+    """An ops/expr shape of ``tree`` for tape.compile_shape; ``leaves``
+    collects the leaves in slot order."""
+    if tree[0] in _OPS:
+        return (tree[0],) + tuple(tree_shape(c, leaves) for c in tree[1:])
+    leaves.append(tree)
+    return ("leaf", len(leaves) - 1)
+
+
+def fixed_program(tape, trees, rows_of) -> list:
+    """The VM batch of ``trees`` for tape.vm_program: each tree's tape and
+    its leaves' directory entries, leaf ``(f, r)`` gathering the global
+    rows ``rows_of[(f, r)]`` int32[FIXED_D]."""
+    batch = []
+    for tree in trees:
+        leaves: list = []
+        shape = tree_shape(tree, leaves)
+        batch.append((tape.compile_shape(shape, len(leaves)),
+                      [rows_of[leaf] for leaf in leaves]))
+    return batch
+
+
+def phase_k3_fixed(torch, ck, tape, bm, dev, seed: int, card: dict) -> dict:
+    """K3 on a fixed launch made from the seed: FIXED_B of the coalesced
+    path's trees over five rows at ~8 % fill, one container per domain
+    slot of a 2^20-column row over 256 shards (D = 4096)."""
+    rng = np.random.default_rng(seed + 51)
+    leaves = [("f", 1), ("g", 2), ("f", 2), ("g", 3), ("f", 3)]
+    n = FIXED_D
+    blocks = np.concatenate(
+        [sparse_rows(rng, N_SHARDS, (1 << 20) // 32).reshape(n, 2048)
+         for _ in leaves] + [np.zeros((1, 2048), np.uint32)])
+    rows_of = {leaf: np.arange(i * n, (i + 1) * n, dtype=np.int32)
+               for i, leaf in enumerate(leaves)}
+    zero = len(blocks) - 1
+    batch = fixed_program(tape, [TREES[i] for i in FIXED_TREES], rows_of)
+    prog_np, gidx_np = tape.vm_program(batch, zero, 4, 4)
+    return k3_timing(torch, ck, f"a fixed launch (B={FIXED_B}, D={n}, "
+                     f"bitmap rows at 8 %)", len(batch),
+                     bm.to_tensor(blocks, dev), prog_np, gidx_np, zero, card)
 
 
 def phase_k2_time(torch, ck, bm, probe, card: dict) -> dict:
@@ -1661,11 +1724,13 @@ def kinds_tensors(torch, bm, dev, bpool, apool, acard, rpool):
             torch.from_numpy(rpool.view(np.int16)).to(dev))
 
 
-def phase_k3k_check(torch, ck, bm, kp, dev, seed: int) -> int:
+def phase_k3k_check(torch, ck, bm, kp, edges, dev, seed: int) -> int:
     """K3-kinds against its plain version on the card; returns max
     |err|.  B=1 D=1; (L, T) = (4, 4) and the caps (16, 32); pad rows and
-    slots; each kind's pool empty in turn; and 4096 containers, those of
-    one 2^20-column row over 256 shards."""
+    slots; each kind's pool empty in turn; 4096 containers, those of one
+    2^20-column row over 256 shards; and the decode's edges
+    (tests/torch_kinds_edges.py) at (4, 4), the caps and (64, 32), every
+    edge row alone, and run rows re-padded to rcap 256."""
     rng = np.random.default_rng(seed + 33)
     cases = [kinds_case(kp, rng, "b1d1", 3, 1, 1, 1, 1),
              kinds_case(kp, rng, "l4t4", 60, 4, 4, 4, 64),
@@ -1675,6 +1740,14 @@ def phase_k3k_check(torch, ck, bm, kp, dev, seed: int) -> int:
              kinds_case(kp, rng, "no_array", 30, 4, 4, 4, 16, drop=2),
              kinds_case(kp, rng, "no_run", 30, 4, 4, 4, 16, drop=3),
              kinds_case(kp, rng, "c4096", 4096, 4, 4, 4, 2048)]
+    cases += [(f"edges_{label}", *edges.edge_case(seed + 34 + slots, slots,
+                                                  tape_len, n_q, domain))
+              for label, slots, tape_len, n_q, domain in edges.EDGE_SHAPES]
+    cases.append(("edges_decode", *edges.decode_case(seed + 35)))
+    label, bpool, apool, acard, rpool, prog, gidx = kinds_case(
+        kp, rng, "repad", 60, 4, 8, 4, 32)
+    cases.append((label, bpool, apool, acard, edges.repad(rpool, 256), prog,
+                  gidx))
     worst = 0
     for label, bpool, apool, acard, rpool, prog, gidx in cases:
         pools = kinds_tensors(torch, bm, dev, bpool, apool, acard, rpool)
@@ -1700,25 +1773,35 @@ def kind_rows(rng, n_shards: int, words: int) -> dict:
     n_cont = n_shards * words // 2048
     rows = {}
     for r in range(1, 9):
-        m = np.zeros(n_shards * words, dtype=np.uint32)
-        pos = rng.integers(0, n_shards * words * 32,
-                           size=n_cont * KINDS_ARRAY_BITS, dtype=np.int64)
-        np.bitwise_or.at(m, pos >> 5,
-                         np.uint32(1) << (pos & 31).astype(np.uint32))
-        rows[r] = m.reshape(n_shards, words)
-    # runs start on every other KIND_RUN_LEN slot, so none touch
-    slots = (1 << 16) // (2 * KIND_RUN_LEN)
-    run_words = KIND_RUN_LEN // 32
+        rows[r] = array_row(rng, n_cont).reshape(n_shards, words)
     for r in range(9, 17):
-        m = np.zeros((n_cont, 2048), dtype=np.uint32)
-        pick = np.argsort(rng.random((n_cont, slots)), axis=1)[:, :KIND_RUNS]
-        idx = (pick[:, :, None] * 2 * run_words
-               + np.arange(run_words)).reshape(n_cont, -1)
-        np.put_along_axis(m, idx, np.uint32(0xFFFFFFFF), axis=1)
-        rows[r] = m.reshape(n_shards, words)
+        rows[r] = run_row(rng, n_cont).reshape(n_shards, words)
     for r in range(17, 25):
         rows[r] = sparse_rows(rng, n_shards, words)
     return rows
+
+
+def array_row(rng, n_cont: int) -> np.ndarray:
+    """uint32[n_cont, 2048]: KINDS_ARRAY_BITS random bits per container on
+    average (~0.1 %)."""
+    m = np.zeros(n_cont * 2048, dtype=np.uint32)
+    pos = rng.integers(0, n_cont * (1 << 16), size=n_cont * KINDS_ARRAY_BITS,
+                       dtype=np.int64)
+    np.bitwise_or.at(m, pos >> 5, np.uint32(1) << (pos & 31).astype(np.uint32))
+    return m.reshape(n_cont, 2048)
+
+
+def run_row(rng, n_cont: int) -> np.ndarray:
+    """uint32[n_cont, 2048]: KIND_RUNS runs of KIND_RUN_LEN columns in
+    every container, on every other KIND_RUN_LEN slot so that none touch."""
+    slots = (1 << 16) // (2 * KIND_RUN_LEN)
+    run_words = KIND_RUN_LEN // 32
+    m = np.zeros((n_cont, 2048), dtype=np.uint32)
+    pick = np.argsort(rng.random((n_cont, slots)), axis=1)[:, :KIND_RUNS]
+    idx = (pick[:, :, None] * 2 * run_words
+           + np.arange(run_words)).reshape(n_cont, -1)
+    np.put_along_axis(m, idx, np.uint32(0xFFFFFFFF), axis=1)
+    return m
 
 
 def row_columns(words: np.ndarray) -> list:
@@ -1954,31 +2037,44 @@ def phase_kinds(ck, tape, containers, srv, http: Http, roaring, cpr: int,
     return out
 
 
-def phase_k3k_time(torch, ck, tape, flush, card: dict) -> dict:
-    """K3-kinds on the inputs of one real flush of the kinds rounds."""
-    batch, mp, zero, tb, lb = flush
-    prog_np, gidx_np = tape.vm_program(batch, zero, tb, lb)
-    dev = mp.bpool.device
+def k3k_timing(torch, ck, label: str, live: int, pools: tuple, prog_np,
+               gidx_np, card: dict) -> dict:
+    """K3-kinds on one launch's inputs (``live`` real queries over the
+    pools (bpool, apool, acard, rpool)), against its plain version and its
+    bound."""
+    dev = pools[0].device
     prog = torch.from_numpy(prog_np).to(dev)
     gidx = torch.from_numpy(gidx_np).to(dev)
-    pools = (mp.bpool, mp.apool, mp.acard, mp.rpool)
     got = ck.vm_counts_kinds(*pools, prog, gidx)
     want = ck.vm_counts_kinds_plain(*pools, prog, gidx)
     torch.cuda.synchronize()
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-    check(err == 0, "K3-kinds differs from its plain version on the kinds "
-                    "rounds' inputs")
+    check(err == 0, f"K3-kinds differs from its plain version on {label}")
+    n_q, tape_len, _ = prog_np.shape
+    slots, _, domain = gidx_np.shape
+    # the wrapper plans the tape on the host before each launch: the
+    # median cost with no tape cached (tapes not seen before) and cached
+    prog_cpu = torch.from_numpy(prog_np)
+    plan_us = {}
+    for name, clear in (("cold", True), ("cached", False)):
+        ts = []
+        for _ in range(HOST_PLAN_CALLS):
+            if clear:
+                ck._plan_row.cache_clear()
+            t0 = time.perf_counter()
+            plan_cpu = ck.vm_kinds_plan(prog_cpu, slots)
+            ts.append((time.perf_counter() - t0) * 1e6)
+        plan_us[name] = float(np.median(ts))
+    plan = plan_cpu.to(dev)
     flush_buf = torch.zeros(64 << 20, dtype=torch.int32, device=dev)
-    k3k = time_ms(torch, lambda: ck._vm_kinds_launch(*pools, prog, gidx),
+    k3k = time_ms(torch, lambda: ck._vm_kinds_launch(*pools, plan, gidx),
                   TIMED_LAUNCHES, flush_buf)
     plain = time_ms(torch, lambda: ck.vm_counts_kinds_plain(*pools, prog,
                                                             gidx),
                     K3_PLAIN_LAUNCHES, flush_buf)
-    n_q, tape_len, _ = prog_np.shape
-    slots, _, domain = gidx_np.shape
-    live = len(batch)
-    rb, ra = int(mp.bpool.shape[0]), int(mp.apool.shape[0])
-    acap, rcap = int(mp.apool.shape[1]), int(mp.rpool.shape[1]) // 2
+    bpool, apool, _acard, rpool = pools
+    rb, ra = int(bpool.shape[0]), int(apool.shape[0])
+    acap, rcap = int(apool.shape[1]), int(rpool.shape[1]) // 2
     # bytes: each row the directory names once, in its compact form
     rows = np.unique(gidx_np)
     n_b = int((rows < rb).sum())
@@ -1987,26 +2083,98 @@ def phase_k3k_time(torch, ck, tape, flush, card: dict) -> dict:
     nbytes = (n_b * 8192 + n_a * (2 * acap + 4) + n_r * 4 * rcap
               + prog_np.nbytes + gidx_np.nbytes + n_q * domain * 4)
     bytes_ms = nbytes / card["hbm_rate"] * 1e3
-    cycles = (live * domain * ck.CONTAINER_WORDS
-              * (tape_len * BITWISE_CYCLES + POPC_CYCLES + BITWISE_CYCLES))
+    # operations: for each cell word of the live queries, one bitwise op
+    # per instruction the result reaches (COPYs and dead code do no
+    # bitwise work), a popcount and an add; the decode is not counted
+    live_ops = plan_cpu[:live, 0].tolist()
+    cycles = sum(domain * ck.CONTAINER_WORDS
+                 * (n * BITWISE_CYCLES + POPC_CYCLES + BITWISE_CYCLES)
+                 for n in live_ops)
     ops_ms = cycles / card["sm_cycles"] * 1e3
+    # the earlier formula, every tape slot a bitwise op, for comparison
+    # with the shares measured before the kernel skipped COPYs
+    all_slots_ops_ms = (live * domain * ck.CONTAINER_WORDS
+                  * (tape_len * BITWISE_CYCLES + POPC_CYCLES
+                     + BITWISE_CYCLES)) / card["sm_cycles"] * 1e3
+    all_slots_bound = max(bytes_ms, all_slots_ops_ms)
     ms = k3k["median"]
-    log(f"K3-kinds timing: one flush of {live} queries, B={n_q} T={tape_len} "
-        f"L={slots} D={domain}, pools Rb={rb} Ra={ra} (acap {acap}) "
-        f"Rr={int(mp.rpool.shape[0])} (rcap {rcap}), distinct rows named: "
-        f"{n_b} bitmap, {n_a} array, {n_r} run, {nbytes} bytes; kernel "
-        f"{fmt(k3k, 1e3, 'us')}, plain {fmt(plain, 1e3, 'us')}, bound "
+    bound = max(bytes_ms, ops_ms)
+    log(f"K3-kinds timing, {label}: {live} queries, B={n_q} T={tape_len} "
+        f"L={slots} D={domain}, live instructions {live_ops}, pools Rb={rb} "
+        f"Ra={ra} (acap {acap}) Rr={int(rpool.shape[0])} (rcap {rcap}), "
+        f"distinct rows named: {n_b} bitmap, {n_a} array, {n_r} run, "
+        f"{nbytes} bytes; kernel {fmt(k3k, 1e3, 'us')}, plain "
+        f"{fmt(plain, 1e3, 'us')}, host plan (median of {HOST_PLAN_CALLS}) "
+        f"{plan_us['cold']:.1f} us cold, {plan_us['cached']:.1f} us cached; bound "
         f"{bytes_ms * 1e3:.2f} us by bytes, {ops_ms * 1e3:.2f} us by "
-        f"operations")
+        f"operations; {100 * bound / ms:.1f} % of the bound; the bound with "
+        f"every tape slot a bitwise op {all_slots_bound * 1e3:.2f} us, "
+        f"{100 * all_slots_bound / ms:.1f} % of it")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain["median"],
-            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_ms": bound,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "all_slots_bound_ms": all_slots_bound, "host_plan_us": plan_us,
             "spread_us": {k: v * 1e3 if k != "n" else v
                           for k, v in k3k.items()},
             "shape": {"B": n_q, "live": live, "T": tape_len, "L": slots,
-                      "D": domain, "Rb": rb, "Ra": ra, "acap": acap,
-                      "Rr": int(mp.rpool.shape[0]), "rcap": rcap,
+                      "D": domain, "live_ops": live_ops, "Rb": rb, "Ra": ra,
+                      "acap": acap, "Rr": int(rpool.shape[0]), "rcap": rcap,
                       "rows_named": [n_b, n_a, n_r]}}
+
+
+def phase_k3k_time(torch, ck, tape, flush, card: dict) -> dict:
+    """K3-kinds on the inputs of one real flush of the kinds rounds."""
+    batch, mp, zero, tb, lb = flush
+    prog_np, gidx_np = tape.vm_program(batch, zero, tb, lb)
+    return k3k_timing(torch, ck, "one flush of the kinds rounds", len(batch),
+                      (mp.bpool, mp.apool, mp.acard, mp.rpool), prog_np,
+                      gidx_np, card)
+
+
+def k3k_fixed_launch(torch, tape, bm, kp, dev, seed: int) -> tuple:
+    """K3-kinds' fixed launch made from the seed: FIXED_B of the kinds
+    rounds' trees over field k's rows 1 and 2 (arrays at ~0.1 %), 9 and 10
+    (16 runs of 512 columns per container) and 17 (a bitmap at ~8 %),
+    drawn as the kinds leg draws them, D = 4096.  Returns the real query
+    count, the pools (bpool, apool, acard, rpool) on ``dev`` and the
+    program (prog, gidx) as numpy."""
+    rng = np.random.default_rng(seed + 53)
+    n = FIXED_D
+    rows = {("k", 1): array_row(rng, n), ("k", 2): array_row(rng, n),
+            ("k", 9): run_row(rng, n), ("k", 10): run_row(rng, n),
+            ("k", 17): sparse_rows(rng, N_SHARDS, (1 << 20) // 32)
+            .reshape(n, 2048)}
+    blocks = np.concatenate(list(rows.values()))
+    kinds = kp.pick_kinds(blocks)
+    want = np.repeat([{1: 2, 2: 2, 9: 3, 10: 3, 17: 1}[r] for _f, r in rows],
+                     n)
+    check(np.array_equal(kinds, want), "the fixed rows picked other kinds")
+    slot, bb, ap, ac, rp = kp.split_pools(blocks, kinds)
+    rb, ra = len(bb) + 1, len(ap) + 1  # each pool ends in its empty row
+    base = np.where(kinds == 1, 0, np.where(kinds == 2, rb, rb + ra))
+    glob = (base + slot).astype(np.int32)
+    rows_of = {leaf: glob[i * n:(i + 1) * n] for i, leaf in enumerate(rows)}
+    pad = np.zeros((1, rp.shape[1]), np.uint16)
+    pad[:, 0::2] = 1
+    pools = kinds_tensors(
+        torch, bm, dev, np.concatenate([bb, np.zeros((1, 2048), np.uint32)]),
+        np.concatenate([ap, np.full((1, ap.shape[1]), 0xFFFF, np.uint16)]),
+        np.concatenate([ac, np.zeros(1, np.int32)]),
+        np.concatenate([rp, pad]))
+    batch = fixed_program(tape, [KINDS_TREES[i] for i in FIXED_TREES],
+                          rows_of)
+    prog_np, gidx_np = tape.vm_program(batch, rb - 1, 4, 4)
+    return len(batch), pools, prog_np, gidx_np
+
+
+def phase_k3k_fixed(torch, ck, tape, bm, kp, dev, seed: int,
+                    card: dict) -> dict:
+    """K3-kinds on its fixed launch (``k3k_fixed_launch``)."""
+    live, pools, prog_np, gidx_np = k3k_fixed_launch(torch, tape, bm, kp,
+                                                     dev, seed)
+    return k3k_timing(torch, ck, f"a fixed launch (B={FIXED_B}, "
+                      f"D={FIXED_D}, array, run and bitmap rows)", live,
+                      pools, prog_np, gidx_np, card)
 
 
 def kernel_line(name, source, replaces, launches, err, timing) -> dict:
@@ -2018,7 +2186,7 @@ def kernel_line(name, source, replaces, launches, err, timing) -> dict:
             "library_ms": None}
 
 
-def run_paths(torch, ck, bm, containers, tape, Server, roaring,
+def run_paths(torch, ck, bm, kp, containers, tape, Server, roaring,
               seed: int, card: dict) -> dict:
     """The server on cuda: the K2 path, the lone query, the coalesced
     path, the scan path, the BSI path, the kinds leg, then the timings
@@ -2074,10 +2242,29 @@ def run_paths(torch, ck, bm, containers, tape, Server, roaring,
         out["k1"] = phase_k1_time(torch, ck, probes["k1"], card)
         out["k3k"] = phase_k3k_time(torch, ck, tape,
                                     out["kinds"].pop("flush"), card)
+        dev = torch.device("cuda", 0)
+        out["k3k_fixed"] = phase_k3k_fixed(torch, ck, tape, bm, kp, dev,
+                                           seed, card)
+        out["k3_fixed"] = phase_k3_fixed(torch, ck, tape, bm, dev, seed,
+                                         card)
         return out
     finally:
         srv.close()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def load_edges():
+    """tests/torch_kinds_edges.py of this checkout, the K3-kinds edge
+    cases it shares with the card tests, loaded by path: another
+    installed package may be named ``tests``."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_kinds_edges.py")
+    spec = importlib.util.spec_from_file_location("torch_kinds_edges", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -2098,7 +2285,8 @@ def main(argv: list[str] | None = None) -> int:
         from pilosa_tpu_torch.ops import cuda_kernels as ck
         from pilosa_tpu_torch.server.server import Server
         from pilosa_tpu_torch.storage import roaring
-    except ImportError as e:
+        edges = load_edges()
+    except (ImportError, OSError) as e:
         print(f"chip_smoke: the port is not importable here ({e}); run "
               f"from the root of a checkout", file=sys.stderr)
         return 2
@@ -2115,7 +2303,7 @@ def main(argv: list[str] | None = None) -> int:
         k3_err = phase_k3_check(torch, ck, bm, dev, args.seed)
         words = (1 << 20) // 32
         phase = "K3-kinds check"
-        k3k_err = phase_k3k_check(torch, ck, bm, kp, dev, args.seed)
+        k3k_err = phase_k3k_check(torch, ck, bm, kp, edges, dev, args.seed)
         phase = "K4 check"
         k4_err = phase_k4_check(torch, ck, bm, dev, args.seed, words)
         phase = "K5 check"
@@ -2125,8 +2313,8 @@ def main(argv: list[str] | None = None) -> int:
         phase = "K1 check"
         k1_err = phase_k1_check(torch, ck, dev, args.seed, words)
         phase = "main paths"
-        out = run_paths(torch, ck, bm, containers, tape, Server, roaring,
-                        args.seed, card)
+        out = run_paths(torch, ck, bm, kp, containers, tape, Server,
+                        roaring, args.seed, card)
     except Exception as e:  # noqa: BLE001 -- report the phase, exit 1
         print(f"chip_smoke: phase {phase!r} failed: {type(e).__name__}: {e}",
               file=sys.stderr)
@@ -2144,7 +2332,16 @@ def main(argv: list[str] | None = None) -> int:
                     "k1_us": out["k1"]["spread_us"],
                     "kinds": out["kinds"],
                     "k3_kinds_us": out["k3k"]["spread_us"],
-                    "k3_kinds_shape": out["k3k"]["shape"]}))
+                    "k3_kinds_shape": out["k3k"]["shape"],
+                    "k3_kinds_all_slots_bound_ms": out["k3k"]["all_slots_bound_ms"],
+                    "k3_kinds_host_plan_us": out["k3k"]["host_plan_us"],
+                    "fixed": {name: {k: out[key][k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "spread_us", "shape") + extra}
+                        for name, key, extra in (
+                            ("vm_counts_kinds", "k3k_fixed",
+                             ("all_slots_bound_ms", "host_plan_us")),
+                            ("vm_counts", "k3_fixed", ()))}}))
     log(json.dumps({"kernels": [
         kernel_line("gathered_count_and",
                     "pilosa_tpu_torch/ops/csrc/gathered_count_and.cu",
@@ -2154,12 +2351,14 @@ def main(argv: list[str] | None = None) -> int:
         kernel_line("vm_counts", "pilosa_tpu_torch/ops/csrc/vm_counts.cu",
                     "pilosa_tpu/ops/pallas_kernels.py:454",
                     out["coalesced"]["k3_launches"],
-                    max(k3_err, out["k3"]["max_abs_err"]), out["k3"]),
+                    max(k3_err, out["k3"]["max_abs_err"],
+                        out["k3_fixed"]["max_abs_err"]), out["k3"]),
         kernel_line("vm_counts_kinds",
                     "pilosa_tpu_torch/ops/csrc/vm_counts_kinds.cu",
                     "pilosa_tpu/ops/pallas_kernels.py:489",
                     out["kinds"]["launches"]["vm_counts_kinds"],
-                    max(k3k_err, out["k3k"]["max_abs_err"]), out["k3k"]),
+                    max(k3k_err, out["k3k"]["max_abs_err"],
+                        out["k3k_fixed"]["max_abs_err"]), out["k3k"]),
         kernel_line("row_counts_masked",
                     "pilosa_tpu_torch/ops/csrc/row_counts_masked.cu",
                     "pilosa_tpu/ops/pallas_kernels.py:145",

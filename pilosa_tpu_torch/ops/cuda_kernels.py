@@ -21,9 +21,13 @@ reached through ``vm_counts`` -> ``_vm_counts_kinds`` for a kind-split
 ``containers.MegaPools`` bundle: K3's function over a virtual pool whose
 rows ``[0, Rb)`` are bitmap blocks, ``[Rb, Rb + Ra)`` sorted uint16 array
 rows and the rest uint16 (start, last) run rows, as int32[B, D].  The
-kernel decodes the array and run rows as it gathers each thread's slice,
-so no dense copy of them is written.  Source: ops/csrc/vm_counts_kinds.cu.
-It is bound by bytes: the compact rows the directory names.
+block decodes each array and run row its cell names in shared memory (a
+shared atomic per array value; toggled run edges and a prefix xor), so
+no dense copy of them is written and no thread searches a row; it runs
+only the instructions and leaves the result reaches, planned once per
+query on the host (``vm_kinds_plan``).  Source: ops/csrc/vm_counts_kinds.cu.  It is bound
+by the instructions it executes (the decode and the tape through shared
+memory), not by the compact rows' bytes.
 
 K4 -- ``row_counts_masked`` replaces the Pallas TopN scan
 ``_row_counts_kernel`` / ``_row_counts_masked_pallas``
@@ -75,8 +79,10 @@ counts kernel launches, process-wide, and nothing else.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
+import numpy as np
 import torch
 
 from pilosa_tpu_torch.ops import bitmap as bm
@@ -86,7 +92,7 @@ from pilosa_tpu_torch.ops import nvcc_build
 CONTAINER_WORDS = 2048  # 32-bit words per 2^16-bit container
 
 #: the card's shared memory for one block (Hopper: 227 KiB), less the
-#: VM kernel's static warp sums
+#: VM kernels' static shared memory (their warp sums)
 VM_SMEM_LIMIT = 232448 - 64
 
 _count_lock = threading.Lock()
@@ -211,11 +217,21 @@ def vm_smem_bytes(tape_len: int, slots: int) -> int:
     return (slots + tape_len) * 128 * 16 + (3 * tape_len + slots) * 4
 
 
+def vm_kinds_smem_bytes(tape_len: int, slots: int) -> int:
+    """Shared memory one K3-kinds block needs: K3's register file, the
+    tape packed one int per instruction, and a row index and an array
+    position per slot (vm_counts_kinds.cu ``smem_bytes``).  It is at most
+    ``vm_smem_bytes`` wherever that fits ``VM_SMEM_LIMIT``."""
+    return (slots + tape_len) * 128 * 16 + (tape_len + 2 * slots) * 4
+
+
 def _check_program(prog: torch.Tensor, gidx: torch.Tensor, rows: int,
-                   device: torch.device) -> None:
+                   device: torch.device, smem_bytes=vm_smem_bytes) -> None:
     """Types, layout, shapes and values of a VM program over a pool of
-    ``rows`` rows on ``device``.  ``prog`` and ``gidx`` may lie on that
-    device or on the CPU, where the host built them."""
+    ``rows`` rows on ``device``, for a kernel whose block needs
+    ``smem_bytes(tape_len, slots)`` bytes of shared memory.  ``prog`` and
+    ``gidx`` may lie on that device or on the CPU, where the host built
+    them."""
     for name, t in (("prog", prog), ("gidx", gidx)):
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
@@ -236,9 +252,9 @@ def _check_program(prog: torch.Tensor, gidx: torch.Tensor, rows: int,
                          "least one leaf slot")
     if n_q * domain >= 2 ** 31:
         raise ValueError("too many cells for one launch")
-    if vm_smem_bytes(tape_len, slots) > VM_SMEM_LIMIT:
+    if smem_bytes(tape_len, slots) > VM_SMEM_LIMIT:
         raise ValueError(f"a tape of {tape_len} over {slots} slots needs "
-                         f"{vm_smem_bytes(tape_len, slots)} bytes of shared "
+                         f"{smem_bytes(tape_len, slots)} bytes of shared "
                          f"memory, more than {VM_SMEM_LIMIT}")
     if gidx.numel():
         lo, hi = torch.aminmax(gidx)
@@ -378,7 +394,7 @@ def _check_kinds(bpool: torch.Tensor, apool: torch.Tensor,
     rows = int(bpool.shape[0]) + int(apool.shape[0]) + int(rpool.shape[0])
     if rows >= 2 ** 31:
         raise ValueError("too many rows for int32 indices")
-    _check_program(prog, gidx, rows, dev)
+    _check_program(prog, gidx, rows, dev, vm_kinds_smem_bytes)
 
 
 def vm_counts_kinds_plain(bpool: torch.Tensor, apool: torch.Tensor,
@@ -394,12 +410,69 @@ def vm_counts_kinds_plain(bpool: torch.Tensor, apool: torch.Tensor,
     return vm_counts_plain(pool, prog, gidx)
 
 
+def vm_tape_plan(tape, slots: int) -> tuple[list, list, int]:
+    """K3-kinds' tape plan for one query's absolute instructions ``tape``
+    [(op, a, b), ...] over ``slots`` leaf slots: a COPY's register
+    aliases its operand, and only what the result reaches runs
+    (ops/tape.py pads tapes with COPYs and pads slots onto the zero row).
+    Returns the live instructions as (op, a, b, dst) in order, the live
+    leaf slots and the result register, which is the last live
+    instruction's ``dst`` or, when none is live, a leaf slot."""
+    alias = list(range(slots))
+    planned = []
+    for t, (op, a, b) in enumerate(tape):
+        a, b = alias[a], alias[b]
+        alias.append(a if op == 4 else slots + t)
+        planned.append((op, a, b, slots + t))
+    result = alias[-1]
+    live = {result}
+    for op, a, b, dst in reversed(planned):
+        if dst in live:
+            live.update((a, b))
+    return ([ins for ins in planned if ins[3] in live],
+            sorted(r for r in live if r < slots), result)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_row(tape: bytes, tape_len: int, slots: int) -> np.ndarray:
+    """One query's row of ``vm_kinds_plan``, from its int32 [T, 3]
+    instructions as bytes."""
+    instrs = np.frombuffer(tape, dtype=np.int32).reshape(tape_len, 3)
+    live_ins, live_slots, result = vm_tape_plan(instrs.tolist(), slots)
+    row = np.zeros(2 + tape_len + slots, dtype=np.uint32)
+    row[0], row[1] = len(live_ins), result
+    for i, (op, a, b, dst) in enumerate(live_ins):
+        row[2 + i] = op | a << 8 | b << 16 | dst << 24
+    row[2 + tape_len + np.asarray(live_slots, dtype=np.int64)] = 1
+    row = row.view(np.int32)
+    row.flags.writeable = False
+    return row
+
+
+def vm_kinds_plan(prog: torch.Tensor, slots: int) -> torch.Tensor:
+    """What K3-kinds reads for a program ``prog`` int32[B, T, 3] over
+    ``slots`` leaf slots, planned on the host (``vm_tape_plan``): per
+    query int32[2 + T + L] holding the live instruction count n, the
+    result register, the n live instructions packed ``op | a << 8 | b <<
+    16 | dst << 24`` (zeros after them) and 1 for each leaf slot the
+    result reaches (0 for the rest, which the kernel neither loads nor
+    decodes).  On the CPU."""
+    n_q, tape_len, _ = prog.shape
+    prog_np = prog.to("cpu").numpy()
+    plan = np.zeros((n_q, 2 + tape_len + slots), dtype=np.int32)
+    for q in range(n_q):
+        plan[q] = _plan_row(prog_np[q].tobytes(), tape_len, slots)
+    return torch.from_numpy(plan)
+
+
 def _vm_kinds_launch(bpool: torch.Tensor, apool: torch.Tensor,
                      acard: torch.Tensor, rpool: torch.Tensor,
-                     prog: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:
-    """Launch K3-kinds on tensors already checked and on one card."""
-    n_q, tape_len, _ = prog.shape
+                     plan: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:
+    """Launch K3-kinds on tensors already checked and on one card, with
+    ``plan = vm_kinds_plan(prog, L)`` on that card."""
+    n_q = int(plan.shape[0])
     slots, _, domain = gidx.shape
+    tape_len = int(plan.shape[1]) - 2 - slots
     out = torch.empty((n_q, domain), dtype=torch.int32, device=bpool.device)
     if out.numel() == 0:
         return out
@@ -407,7 +480,7 @@ def _vm_kinds_launch(bpool: torch.Tensor, apool: torch.Tensor,
     with torch.cuda.device(bpool.device):
         stream = torch.cuda.current_stream(bpool.device).cuda_stream
         rc = launch(bpool.data_ptr(), apool.data_ptr(), acard.data_ptr(),
-                    rpool.data_ptr(), prog.data_ptr(), gidx.data_ptr(),
+                    rpool.data_ptr(), plan.data_ptr(), gidx.data_ptr(),
                     out.data_ptr(), int(bpool.shape[0]),
                     int(apool.shape[0]), int(apool.shape[1]),
                     int(rpool.shape[1]) // 2, n_q, tape_len, slots, domain,
@@ -430,8 +503,9 @@ def vm_counts_kinds(bpool: torch.Tensor, apool: torch.Tensor,
     _check_kinds(bpool, apool, acard, rpool, prog, gidx)
     if bpool.device.type != "cuda":
         return vm_counts_kinds_plain(bpool, apool, acard, rpool, prog, gidx)
+    plan = vm_kinds_plan(prog, int(gidx.shape[0]))
     out = _vm_kinds_launch(bpool, apool, acard, rpool,
-                           prog.to(bpool.device), gidx.to(bpool.device))
+                           plan.to(bpool.device), gidx.to(bpool.device))
     if out.numel():
         _count(vm_counts_kinds)
     return out

@@ -6,7 +6,8 @@ the GroupBy count), K6 (``bsi_compare``, the BSI ripple) and K1
 (``count_and``) against their plain versions, the executor's
 ``Count(Intersect(Row, Row))`` route launching K2 on ``cuda`` pools, a
 coalesced heterogeneous batch launching K3 once (both with container
-kinds off, so that the sparse rows stay bitmap blocks), a coalesced
+kinds off, so that the sparse rows stay bitmap blocks), K3-kinds at the
+edges of its decode (tests/torch_kinds_edges.py), a coalesced
 batch over array, run and bitmap rows launching K3-kinds once, TopN and GroupBy
 launching K4 and K5, and an int field's range rows and aggregates
 launching K6, K4 and K1 where the CPU tests see their dispatch sites.
@@ -37,6 +38,10 @@ from pilosa_tpu_torch.ops import tape
 from pilosa_tpu_torch.parallel.coalescer import Coalescer
 from pilosa_tpu_torch.parallel.executor import ExecOptions, Executor
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+# tests/ is on sys.path under pytest (rootdir-less test files); another
+# installed package may be named ``tests``
+import torch_kinds_edges as edges  # noqa: E402
 
 CW = ck.CONTAINER_WORDS
 
@@ -272,15 +277,56 @@ def _kinds_case(seed: int, n_blocks: int, slots: int, tape_len: int,
             torch.from_numpy(prog), torch.from_numpy(gidx))
 
 
+def _edge_kinds_case(case: str, slots: int, tape_len: int, n_q: int,
+                     domain: int, device):
+    """The megapools of tests/torch_kinds_edges.py on ``device``: a random
+    program at one shape (``edges``), every row alone (``decode``), or
+    split_pools' pools with the run rows re-padded to rcap 256
+    (``repad``)."""
+    if case == "decode":
+        bpool, apool, acard, rpool, prog, gidx = edges.decode_case(71)
+    elif case == "repad":
+        rng = np.random.default_rng(72)
+        blocks = _kind_blocks(rng, 60)
+        _s, bb, ap, ac, rp = kp.split_pools(blocks, kp.pick_kinds(blocks))
+        bpool = np.concatenate([bb, np.zeros((1, CW), np.uint32)])
+        apool = np.concatenate([ap, np.full((1, ap.shape[1]), 0xFFFF,
+                                            np.uint16)])
+        acard = np.concatenate([ac, np.zeros(1, np.int32)])
+        rpool = edges.repad(np.concatenate([rp, edges.repad(
+            np.zeros((1, 0), np.uint16), rp.shape[1] // 2)]), 256)
+        rows = len(bpool) + len(apool) + len(rpool)
+        prog, gidx = edges.random_program(rng, n_q, slots, tape_len, rows,
+                                          domain, len(bpool) - 1)
+    else:
+        bpool, apool, acard, rpool, prog, gidx = edges.edge_case(
+            70 + slots, slots, tape_len, n_q, domain)
+    return (bm.to_tensor(bpool, device),
+            torch.from_numpy(apool.view(np.int16)).to(device),
+            torch.from_numpy(acard).to(device),
+            torch.from_numpy(rpool.view(np.int16)).to(device),
+            torch.from_numpy(prog), torch.from_numpy(gidx))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_blocks,slots,tape_len,n_q,domain", [
     (3, 1, 1, 1, 1), (30, 4, 4, 4, 8), (60, 16, 32, 2, 16),
     # the containers of 2^20-column rows: 16 per shard, 256 shards
-    (4096, 4, 4, 8, 512)])
+    (4096, 4, 4, 8, 512),
+    # the decode's edges (tests/torch_kinds_edges.py): pass and warp
+    # boundaries, full and empty arrays, long, short and 256 runs, at the
+    # served caps and at a large admitted shape; every row alone; run
+    # rows re-padded to a wider rcap
+    ("edges", 4, 4, 4, 64), ("edges", 16, 32, 2, 16),
+    ("edges", 64, 32, 2, 8), ("decode", 1, 1, 1, 0), ("repad", 4, 8, 4, 32)])
 def test_k3_kinds_matches_its_plain_version(cuda_device, n_blocks, slots,
                                             tape_len, n_q, domain):
-    args = _kinds_case(n_blocks + slots, n_blocks, slots, tape_len, n_q,
-                       domain, cuda_device)
+    if isinstance(n_blocks, str):
+        args = _edge_kinds_case(n_blocks, slots, tape_len, n_q, domain,
+                                cuda_device)
+    else:
+        args = _kinds_case(n_blocks + slots, n_blocks, slots, tape_len,
+                           n_q, domain, cuda_device)
     before = ck.vm_counts_kinds.launches
     got = ck.vm_counts_kinds(*args)
     torch.cuda.synchronize()

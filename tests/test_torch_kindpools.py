@@ -10,8 +10,12 @@ bits 0 and 65535, and padding pairs.  Then ``vm_counts_kinds`` on CPU
 tensors (its plain version, which the wrapper takes for a CPU pool)
 against ``_vm_counts_kinds_pallas(interpret=True)`` and
 ``_vm_counts_kinds_jnp`` on seeded megapools, each pool empty in turn,
-up to the caps (16 leaf slots, 32 instructions), every opcode.  Every
-comparison is exact."""
+up to the caps (16 leaf slots, 32 instructions), every opcode, and on
+the megapools of tests/torch_kinds_edges.py at the edges of the kernel's
+decode, up to 64 leaf slots.  Then the kernel's tape plan, made on the
+host (``vm_tape_plan``: COPYs as aliases, dead code dropped) and packed
+as the kernel reads it (``vm_kinds_plan``), against the plain VM, and K3-kinds' admission by its own shared memory.  Every comparison
+is exact."""
 
 from __future__ import annotations
 
@@ -23,6 +27,11 @@ from pilosa_tpu.ops import kindpools as jkp
 from pilosa_tpu.ops import pallas_kernels as pk
 from pilosa_tpu_torch.ops import cuda_kernels as ck
 from pilosa_tpu_torch.ops import kindpools as tkp
+from pilosa_tpu_torch.ops import tape as ttape
+
+# tests/ is on sys.path under pytest (rootdir-less test files); another
+# installed package may be named ``tests``
+import torch_kinds_edges as edges  # noqa: E402
 
 CB = 1 << 16
 CW = CB // 32
@@ -284,3 +293,132 @@ def test_k3_kinds_refuses_bad_calls_before_any_launch():
         ck.vm_counts_kinds(tb, ta, tc, tr, torch.tensor([[[0, 0, 2]]],
                                                         dtype=torch.int32),
                            torch.from_numpy(gidx))
+
+
+def _edge_args(case: str):
+    """The edge megapools and a program: a random one at each shape of
+    ``edges.EDGE_SHAPES`` (domain cut to 4 lanes for the interpreter),
+    every row alone (``decode``), or split_pools' own pools with their
+    run rows re-padded to rcap 256 (``repad``)."""
+    if case == "decode":
+        return edges.decode_case(61)
+    if case == "repad":
+        bpool, apool, acard, rpool = _megapools(62, None)
+        rpool = edges.repad(rpool, 256)
+        rows = len(bpool) + len(apool) + len(rpool)
+        prog, gidx = edges.random_program(np.random.default_rng(62), 4, 4,
+                                          8, rows, 4, len(bpool) - 1)
+        return bpool, apool, acard, rpool, prog, gidx
+    _l, slots, tape_len, n_q, _d = next(s for s in edges.EDGE_SHAPES
+                                        if s[0] == case)
+    return edges.edge_case(60 + slots, slots, tape_len, n_q, 4)
+
+
+@pytest.mark.parametrize("case", [s[0] for s in edges.EDGE_SHAPES]
+                         + ["decode", "repad"])
+def test_k3_kinds_plain_matches_interpret_pallas_and_jnp_at_decode_edges(
+        case):
+    import jax.numpy as jnp
+
+    args = _edge_args(case)
+    got = _port_kinds(*args)
+    jargs = tuple(jnp.asarray(a) for a in args)
+    assert np.array_equal(got, np.asarray(pk._vm_counts_kinds_jnp(*jargs)))
+    assert np.array_equal(got, np.asarray(
+        pk._vm_counts_kinds_pallas(*jargs, interpret=True)))
+    if case == "decode":  # each cell counts one row: its own bits
+        bpool, apool, acard, rpool = args[:4]
+        runs = rpool.reshape(len(rpool), -1, 2).astype(np.int64)
+        want = np.concatenate([
+            np.bitwise_count(bpool).sum(axis=1), acard,
+            np.where(runs[..., 1] >= runs[..., 0],
+                     runs[..., 1] - runs[..., 0] + 1, 0).sum(axis=1)])
+        assert np.array_equal(got[0], want)
+
+
+def _plan_counts(pool: np.ndarray, prog: np.ndarray,
+                 gidx: np.ndarray) -> np.ndarray:
+    """Per-cell counts read as the kernel reads ``ck.vm_kinds_plan``:
+    only the live leaf slots gathered, only the live instructions run,
+    the result register popcounted."""
+    slots, n_q, domain = gidx.shape
+    tape_len = prog.shape[1]
+    plan = ck.vm_kinds_plan(torch.from_numpy(prog), slots).numpy()
+    assert plan.shape == (n_q, 2 + tape_len + slots)
+    out = np.zeros((n_q, domain), dtype=np.int32)
+    for q in range(n_q):
+        live_n, result = plan[q, :2]
+        tape = plan[q, 2:2 + tape_len].view(np.uint32)
+        assert not tape[live_n:].any()
+        regs = {s: pool[gidx[s, q]] for s in range(slots)
+                if plan[q, 2 + tape_len + s]}
+        for ins in tape[:live_n].tolist():
+            op, a, b, dst = (ins & 0xff, ins >> 8 & 0xff, ins >> 16 & 0xff,
+                             ins >> 24)
+            xa, xb = regs[a], regs[b]
+            regs[dst] = (xa & xb, xa | xb, xa ^ xb, xa & ~xb)[op]
+        out[q] = np.bitwise_count(regs[result]).sum(axis=1)
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_the_kernels_tape_plan_counts_as_the_plain_vm(seed):
+    rng = np.random.default_rng(300 + seed)
+    pool = rng.integers(0, 2 ** 32, size=(12, CW), dtype=np.uint32)
+    pool[-1] = 0
+    # the coalescer's programs: COPY-padded tapes, pad rows and pad slots
+    shapes = [("and", ("leaf", 0), ("leaf", 1)),
+              ("or", ("leaf", 0), ("leaf", 1), ("leaf", 2)),
+              ("xor", ("and", ("leaf", 0), ("leaf", 2)), ("leaf", 1)),
+              ("andnot", ("leaf", 1), ("leaf", 0))]
+    batch = [(ttape.compile_shape(sh, 3), [rng.integers(0, 11, 5).astype(
+        np.int32) for _ in range(3)]) for sh in shapes[:3]]
+    progs = [ttape.vm_program(batch, 11, 8, 4)]
+    # random SSA programs with dead instructions, dead slots and COPYs
+    progs.append(edges.random_program(rng, 4, 6, 16, 12, 5, 11))
+    progs.append((np.full((2, 4, 3), (4, 0, 0), dtype=np.int32),
+                  rng.integers(0, 12, (3, 2, 5)).astype(np.int32)))
+    for prog, gidx in progs:
+        want = ck.vm_counts_plain(torch.from_numpy(pool.view(np.int32)),
+                                  torch.from_numpy(prog),
+                                  torch.from_numpy(gidx)).numpy()
+        assert np.array_equal(_plan_counts(pool, prog, gidx), want)
+
+
+def test_the_tape_plan_drops_copies_dead_code_and_pad_slots():
+    # Count(Intersect(slot 0, slot 1)) in the (4, 4) class: AND, 3 COPYs
+    prog = [(0, 0, 1), (4, 4, 0), (4, 5, 0), (4, 6, 0)]
+    assert ck.vm_tape_plan(prog, 4) == ([(0, 0, 1, 4)], [0, 1], 4)
+    # a pad row: COPYs of slot 0 only
+    assert ck.vm_tape_plan([(4, 0, 0)] * 4, 4) == ([], [0], 0)
+    # instruction 1 reads slot 2 but the result does not reach it
+    prog = [(1, 0, 1), (2, 2, 3), (4, 3, 0)]
+    assert ck.vm_tape_plan(prog, 3) == ([(1, 0, 1, 3)], [0, 1], 3)
+
+
+def _admission_args(slots: int, tape_len: int):
+    bpool, apool, acard, rpool = _megapools(5, None)
+    prog = np.zeros((1, tape_len, 3), dtype=np.int32)
+    prog[0, :, 0] = 4  # COPYs of slot 0
+    gidx = np.zeros((slots, 1, 1), dtype=np.int32)
+    return (torch.from_numpy(bpool.view(np.int32)), _t16(apool),
+            torch.from_numpy(acard), _t16(rpool), torch.from_numpy(prog),
+            torch.from_numpy(gidx))
+
+
+def test_k3_kinds_admits_by_its_own_shared_memory_before_any_launch():
+    limit = ck.VM_SMEM_LIMIT
+    # every shape K3's formula admits, K3-kinds' admits too
+    for total in range(2, 120):
+        for t in range(1, total):
+            if ck.vm_smem_bytes(t, total - t) <= limit:
+                assert ck.vm_kinds_smem_bytes(t, total - t) <= limit
+    before = ck.vm_counts_kinds.launches
+    for slots in (16, 64, 81):  # the caps, a large shape, the last fit
+        out = ck.vm_counts_kinds(*_admission_args(slots, 32))
+        assert out.shape == (1, 1)
+    assert ck.vm_kinds_smem_bytes(32, 81) <= limit
+    assert ck.vm_kinds_smem_bytes(32, 82) > limit
+    with pytest.raises(ValueError, match="shared memory"):
+        ck.vm_counts_kinds(*_admission_args(82, 32))
+    assert ck.vm_counts_kinds.launches == before
