@@ -18,10 +18,14 @@ PyTorch version on the card:
 3. K2 check: ``gathered_count_and`` against its plain version on seeded
    pools (zero rows, indices past either end, P=1, a P that is not a
    power of two, and P=4096 over two 8192-row pools), bit-exact;
-4. K3 check: ``vm_counts`` against its plain version on seeded pools and
-   random SSA programs over all five opcodes (B=1 D=1; (L, T) = (4, 4)
-   and the caps (16, 32); pad rows and pad slots on the zero row; an
-   8192-row pool), bit-exact;
+4. K3 check: the kernel's shared-memory formula against the wrapper's;
+   ``vm_counts`` against its plain version on seeded pools and random SSA
+   programs over all five opcodes (B=1 D=1; (L, T) = (4, 4) and the caps
+   (16, 32); pad rows and pad slots on the zero row; an 8192-row pool),
+   and on the launches of tests/torch_vm_cases.py at D=128 (16 queries
+   sharing five leaves, one row in two slots, pads and COPY chains, the
+   caps, a batch cut into query groups, (L, T) = (64, 32)), one launch
+   each, bit-exact;
 4b. K3-kinds check: ``vm_counts_kinds`` against its plain version on
    seeded kind-split megapools (array, run and bitmap containers with
    bits 0 and 65535): B=1 D=1; (L, T) = (4, 4) and the caps (16, 32);
@@ -95,11 +99,14 @@ PyTorch version on the card:
    Count's inputs and K1 on a filtered Sum's, both recorded from step
    11, K3-kinds on one launch of ``KINDS_TIMED_BATCH`` queries recorded
    from step 11b (CUDA events around each launch, L2 flushed before
-   each), beside their plain versions and their bounds; then K3-kinds and
-   K3 each on a fixed launch made from the seed, whatever the coalescer
-   flushed: B=4, D=4096, (L, T) = (4, 4), four of the rounds' tree shapes
-   over arrays at ~0.1 %, 16 runs of 512 and bitmaps at 8 % (K3-kinds),
-   or over bitmap rows at 8 % (K3).
+   each), beside their plain versions and their bounds, and K3's and
+   K3-kinds' host plans (median µs, tapes cold and cached); then
+   K3-kinds and K3 each on a fixed launch made from the seed, whatever
+   the coalescer flushed: B=4, D=4096, (L, T) = (4, 4), four of the
+   rounds' tree shapes over arrays at ~0.1 %, 16 runs of 512 and bitmaps
+   at 8 % (K3-kinds), or over bitmap rows at 8 % (K3); and K3 on a wide
+   fixed launch, all 16 shapes over the same five rows of a 64-shard
+   index (B=16, D=1024).
 
 Latencies are host-clock times; each is reported as the median with its
 10th and 90th percentiles and the sample count.
@@ -174,6 +181,11 @@ KINDS_TIMED_BATCH = 4  # queries in the timed K3-kinds launch
 FIXED_B = 4  # queries of the fixed-shape K3 and K3-kinds launches...
 FIXED_D = 4096  # ...one container per slot of a 2^20-column row x 256
 FIXED_TREES = (0, 5, 9, 12)  # which of the 16 tree shapes they run
+#: the wide K3 launch: all 16 tree shapes over the same five rows of a
+#: 64-shard index, the widest batch ``max_prefetch`` admits there
+WIDE_SHARDS = 64
+#: domain of tests/torch_vm_cases.py's launches in the K3 check
+K3_CASES_D = 128
 
 _OPS = {"and": "Intersect", "or": "Union", "andnot": "Difference",
         "xor": "Xor"}
@@ -367,26 +379,48 @@ def k3_case(rng, label, rows, slots, tape_len, n_q, domain, live_q=None):
     return label, pool, prog, gidx
 
 
-def phase_k3_check(torch, ck, bm, dev, seed: int) -> int:
-    """K3 against its plain version on the card; returns max |err|."""
+def phase_k3_check(torch, ck, bm, nvcc_build, vm_cases, dev,
+                   seed: int) -> int:
+    """K3 against its plain version on the card, one launch a case;
+    returns max |err|.  First the source's shared-memory formula against
+    the wrapper's, which sizes the query groups."""
+    import ctypes
+
+    smem = nvcc_build.load("vm_counts").vm_counts_smem_bytes
+    smem.restype = ctypes.c_int
+    smem.argtypes = [ctypes.c_int] * 5
+    for args in ((1, 0, 1, 1, 1), (5, 1, 4, 4, 2), (5, 0, 16, 4, 2),
+                 (16, 32, 1, 32, 1), (112, 0, 7, 32, 1), (64, 32, 1, 32, 1),
+                 (20, 3, 8, 8, 2)):
+        check(smem(*args) == ck.vm_group_smem_bytes(*args),
+              f"K3's shared memory formula differs from the source's at "
+              f"{args}")
     rng = np.random.default_rng(seed + 3)
     cases = [k3_case(rng, "b1d1", 3, 1, 1, 1, 1),
              k3_case(rng, "l4t4", 64, 4, 4, 4, 64),
              k3_case(rng, "caps", 96, 16, 32, 2, 32),
              k3_case(rng, "pads", 40, 4, 4, 8, 16, live_q=5),
              k3_case(rng, "rows8192", 8192, 4, 4, 4, 4096)]
+    cases += [(f"cases.{label}", pool, prog, gidx) for label, pool, prog, gidx
+              in vm_cases.k3_cases(seed + 4, K3_CASES_D)]
     worst = 0
     for label, pool, prog, gidx in cases:
         tpool = bm.to_tensor(pool, dev)
         tprog, tgidx = torch.from_numpy(prog), torch.from_numpy(gidx)
+        plan = ck.vm_plan(tprog, tgidx)
+        before = ck.vm_counts.launches
         got = ck.vm_counts(tpool, tprog, tgidx)
         torch.cuda.synchronize()
+        check(ck.vm_counts.launches == before + 1,
+              f"K3 did not launch once ({label})")
         want = ck.vm_counts_plain(tpool, tprog, tgidx)
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         worst = max(worst, err)
         log(f"K3 check {label}: pool {pool.shape[0]} rows, B={prog.shape[0]} "
             f"T={prog.shape[1]} L={gidx.shape[0]} D={gidx.shape[2]}, "
-            f"max_abs_err {err}")
+            f"{plan.n_leaves} distinct leaves in {plan.n_groups} query "
+            f"groups, {plan.vec} vectors per thread and pass, {plan.smem} "
+            f"bytes of shared memory, max_abs_err {err}")
         check(err == 0 and torch.equal(got, want),
               f"K3 differs from its plain version ({label})")
     return worst
@@ -1121,10 +1155,28 @@ def phase_k5_time(torch, ck, bm, probe, card: dict) -> dict:
                           for k, v in k5.items()}}
 
 
+def host_plan_us(plan_fn, caches) -> dict:
+    """Median host-clock µs of ``plan_fn()`` over ``HOST_PLAN_CALLS``
+    calls with the tape caches ``caches`` cleared before each call (tapes
+    not seen before) and kept (seen before)."""
+    out = {}
+    for name, clear in (("cold", True), ("cached", False)):
+        ts = []
+        for _ in range(HOST_PLAN_CALLS):
+            if clear:
+                for c in caches:
+                    c.cache_clear()
+            t0 = time.perf_counter()
+            plan_fn()
+            ts.append((time.perf_counter() - t0) * 1e6)
+        out[name] = float(np.median(ts))
+    return out
+
+
 def k3_timing(torch, ck, label: str, live: int, pool, prog_np, gidx_np,
               zero: int, card: dict) -> dict:
     """K3 on one launch's inputs (``live`` real queries), against its
-    plain version and its bound."""
+    plain version and its bound, with its host plan timed alone."""
     prog = torch.from_numpy(prog_np).to(pool.device)
     gidx = torch.from_numpy(gidx_np).to(pool.device)
     got = ck.vm_counts(pool, prog, gidx)
@@ -1132,8 +1184,13 @@ def k3_timing(torch, ck, label: str, live: int, pool, prog_np, gidx_np,
     torch.cuda.synchronize()
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     check(err == 0, f"K3 differs from its plain version on {label}")
+    prog_cpu, gidx_cpu = torch.from_numpy(prog_np), torch.from_numpy(gidx_np)
+    plan_us = host_plan_us(lambda: ck.vm_plan(prog_cpu, gidx_cpu),
+                           (ck._plan_row, ck._query_plan))
+    plan = ck.vm_plan(prog_cpu, gidx_cpu)
+    plan_dev = plan._replace(meta=plan.meta.to(pool.device))
     flush_buf = torch.zeros(64 << 20, dtype=torch.int32, device=pool.device)
-    k3 = time_ms(torch, lambda: ck._vm_launch(pool, prog, gidx),
+    k3 = time_ms(torch, lambda: ck._vm_launch(pool, gidx, plan_dev),
                  TIMED_LAUNCHES, flush_buf)
     plain = time_ms(torch, lambda: ck.vm_counts_plain(pool, prog, gidx),
                     K3_PLAIN_LAUNCHES, flush_buf)
@@ -1147,29 +1204,54 @@ def k3_timing(torch, ck, label: str, live: int, pool, prog_np, gidx_np,
     nbytes = (rows_read * ck.CONTAINER_WORDS * 4 + prog_np.nbytes
               + gidx_np.nbytes + n_q * domain * 4)
     bytes_ms = nbytes / card["hbm_rate"] * 1e3
-    # operations: the live queries' cells, T bitwise ops, one popcount and
-    # one add for each of their 2048 words
-    cycles = (live * domain * ck.CONTAINER_WORDS
-              * (tape_len * BITWISE_CYCLES + POPC_CYCLES + BITWISE_CYCLES))
-    ops_ms = cycles / card["sm_cycles"] * 1e3
+    # what the kernel reads: each group's distinct leaves once per domain
+    # slot (an absent container of a leaf is a read of the zero row)
+    design_bytes = plan.n_leaves * domain * ck.CONTAINER_WORDS * 4
+    # operations: for each cell word of the live queries, one bitwise op
+    # per instruction the result reaches (COPYs and dead code do no
+    # bitwise work), a popcount and an add; beside it the first design's
+    # count, every tape slot a bitwise op
+    meta = plan.meta.numpy()
+    live_ops = meta[:live * (2 + tape_len + slots):2 + tape_len + slots
+                    ].tolist()
+    word_cells = domain * ck.CONTAINER_WORDS
+    ops_ms = sum(word_cells * (n * BITWISE_CYCLES + POPC_CYCLES
+                               + BITWISE_CYCLES) for n in live_ops
+                 ) / card["sm_cycles"] * 1e3
+    all_slots_ops_ms = (live * word_cells
+                        * (tape_len * BITWISE_CYCLES + POPC_CYCLES
+                           + BITWISE_CYCLES)) / card["sm_cycles"] * 1e3
     ms = k3["median"]
     bound = max(bytes_ms, ops_ms)
+    all_slots_bound = max(bytes_ms, all_slots_ops_ms)
     log(f"K3 timing, {label}: {live} queries, B={n_q} T={tape_len} "
-        f"L={slots} D={domain}, pool {pool.shape[0]} rows, {real_entries} "
-        f"gathered containers over {rows_read} distinct rows, {nbytes} "
-        f"bytes; kernel {fmt(k3, 1e3, 'us')} "
-        f"({nbytes / ms / 1e6:.1f} GB/s at the median), plain "
-        f"{fmt(plain, 1e3, 'us')}, bound {bytes_ms * 1e3:.2f} us by bytes, "
-        f"{ops_ms * 1e3:.2f} us by operations; {100 * bound / ms:.1f} % of "
-        f"the bound")
+        f"L={slots} D={domain}, live instructions {live_ops}, pool "
+        f"{pool.shape[0]} rows, {real_entries} gathered containers over "
+        f"{rows_read} distinct rows ({nbytes} bytes); the plan: "
+        f"{plan.n_leaves} distinct leaves in {plan.n_groups} query groups, "
+        f"{design_bytes} bytes of containers read "
+        f"({design_bytes / ms / 1e6:.1f} GB/s at the median), {plan.vec} "
+        f"vectors per thread and pass, {plan.smem} bytes of shared memory; "
+        f"host plan (median of "
+        f"{HOST_PLAN_CALLS}) {plan_us['cold']:.1f} us cold, "
+        f"{plan_us['cached']:.1f} us cached; kernel {fmt(k3, 1e3, 'us')}, "
+        f"plain {fmt(plain, 1e3, 'us')}; bound {bytes_ms * 1e3:.2f} us by "
+        f"bytes, {ops_ms * 1e3:.2f} us by operations over live "
+        f"instructions ({all_slots_ops_ms * 1e3:.2f} us with every tape "
+        f"slot a bitwise op); {100 * bound / ms:.1f} % of the bound "
+        f"({100 * all_slots_bound / ms:.1f} % of the all-slots bound)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain["median"],
             "bound_ms": bound,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "all_slots_bound_ms": all_slots_bound, "host_plan_us": plan_us,
             "spread_us": {k: v * 1e3 if k != "n" else v
                           for k, v in k3.items()},
             "shape": {"B": n_q, "live": live, "T": tape_len, "L": slots,
                       "D": domain, "pool_rows": int(pool.shape[0]),
-                      "gathered": real_entries, "distinct_rows": rows_read}}
+                      "gathered": real_entries, "distinct_rows": rows_read,
+                      "live_ops": live_ops, "leaves": plan.n_leaves,
+                      "groups": plan.n_groups, "vec": plan.vec,
+                      "read_bytes": design_bytes}}
 
 
 def phase_k3_time(torch, ck, tape, flush, card: dict) -> dict:
@@ -1192,7 +1274,7 @@ def tree_shape(tree, leaves: list):
 def fixed_program(tape, trees, rows_of) -> list:
     """The VM batch of ``trees`` for tape.vm_program: each tree's tape and
     its leaves' directory entries, leaf ``(f, r)`` gathering the global
-    rows ``rows_of[(f, r)]`` int32[FIXED_D]."""
+    rows ``rows_of[(f, r)]`` int32[D]."""
     batch = []
     for tree in trees:
         leaves: list = []
@@ -1202,23 +1284,32 @@ def fixed_program(tape, trees, rows_of) -> list:
     return batch
 
 
-def phase_k3_fixed(torch, ck, tape, bm, dev, seed: int, card: dict) -> dict:
-    """K3 on a fixed launch made from the seed: FIXED_B of the coalesced
-    path's trees over five rows at ~8 % fill, one container per domain
-    slot of a 2^20-column row over 256 shards (D = 4096)."""
+def k3_fixed_launch(tape, seed: int, n_shards: int, trees: list) -> tuple:
+    """K3's fixed launch made from the seed: ``trees`` (of the coalesced
+    path's) over five rows at ~8 % fill, one container per domain slot of
+    a 2^20-column row over ``n_shards`` shards.  Returns the pool's blocks
+    and the program (prog, gidx) as numpy and the zero row."""
     rng = np.random.default_rng(seed + 51)
     leaves = [("f", 1), ("g", 2), ("f", 2), ("g", 3), ("f", 3)]
-    n = FIXED_D
+    n = n_shards * 16
     blocks = np.concatenate(
-        [sparse_rows(rng, N_SHARDS, (1 << 20) // 32).reshape(n, 2048)
+        [sparse_rows(rng, n_shards, (1 << 20) // 32).reshape(n, 2048)
          for _ in leaves] + [np.zeros((1, 2048), np.uint32)])
     rows_of = {leaf: np.arange(i * n, (i + 1) * n, dtype=np.int32)
                for i, leaf in enumerate(leaves)}
     zero = len(blocks) - 1
-    batch = fixed_program(tape, [TREES[i] for i in FIXED_TREES], rows_of)
+    batch = fixed_program(tape, trees, rows_of)
     prog_np, gidx_np = tape.vm_program(batch, zero, 4, 4)
-    return k3_timing(torch, ck, f"a fixed launch (B={FIXED_B}, D={n}, "
-                     f"bitmap rows at 8 %)", len(batch),
+    return blocks, prog_np, gidx_np, zero
+
+
+def phase_k3_fixed(torch, ck, tape, bm, dev, seed: int, card: dict,
+                   n_shards: int, trees: list) -> dict:
+    """K3 on its fixed launch (``k3_fixed_launch``)."""
+    blocks, prog_np, gidx_np, zero = k3_fixed_launch(tape, seed, n_shards,
+                                                     trees)
+    return k3_timing(torch, ck, f"a fixed launch (B={len(trees)}, "
+                     f"D={n_shards * 16}, bitmap rows at 8 %)", len(trees),
                      bm.to_tensor(blocks, dev), prog_np, gidx_np, zero, card)
 
 
@@ -2055,16 +2146,9 @@ def k3k_timing(torch, ck, label: str, live: int, pools: tuple, prog_np,
     # the wrapper plans the tape on the host before each launch: the
     # median cost with no tape cached (tapes not seen before) and cached
     prog_cpu = torch.from_numpy(prog_np)
-    plan_us = {}
-    for name, clear in (("cold", True), ("cached", False)):
-        ts = []
-        for _ in range(HOST_PLAN_CALLS):
-            if clear:
-                ck._plan_row.cache_clear()
-            t0 = time.perf_counter()
-            plan_cpu = ck.vm_kinds_plan(prog_cpu, slots)
-            ts.append((time.perf_counter() - t0) * 1e6)
-        plan_us[name] = float(np.median(ts))
+    plan_us = host_plan_us(lambda: ck.vm_kinds_plan(prog_cpu, slots),
+                           (ck._plan_row,))
+    plan_cpu = ck.vm_kinds_plan(prog_cpu, slots)
     plan = plan_cpu.to(dev)
     flush_buf = torch.zeros(64 << 20, dtype=torch.int32, device=dev)
     k3k = time_ms(torch, lambda: ck._vm_kinds_launch(*pools, plan, gidx),
@@ -2245,23 +2329,26 @@ def run_paths(torch, ck, bm, kp, containers, tape, Server, roaring,
         dev = torch.device("cuda", 0)
         out["k3k_fixed"] = phase_k3k_fixed(torch, ck, tape, bm, kp, dev,
                                            seed, card)
-        out["k3_fixed"] = phase_k3_fixed(torch, ck, tape, bm, dev, seed,
-                                         card)
+        out["k3_fixed"] = phase_k3_fixed(
+            torch, ck, tape, bm, dev, seed, card, N_SHARDS,
+            [TREES[i] for i in FIXED_TREES])
+        out["k3_fixed16"] = phase_k3_fixed(torch, ck, tape, bm, dev, seed,
+                                           card, WIDE_SHARDS, TREES)
         return out
     finally:
         srv.close()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def load_edges():
-    """tests/torch_kinds_edges.py of this checkout, the K3-kinds edge
-    cases it shares with the card tests, loaded by path: another
-    installed package may be named ``tests``."""
+def load_test_module(name: str):
+    """tests/<name>.py of this checkout, cases it shares with the card
+    tests, loaded by path: another installed package may be named
+    ``tests``."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "torch_kinds_edges.py")
-    spec = importlib.util.spec_from_file_location("torch_kinds_edges", path)
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -2285,7 +2372,8 @@ def main(argv: list[str] | None = None) -> int:
         from pilosa_tpu_torch.ops import cuda_kernels as ck
         from pilosa_tpu_torch.server.server import Server
         from pilosa_tpu_torch.storage import roaring
-        edges = load_edges()
+        edges = load_test_module("torch_kinds_edges")
+        vm_cases = load_test_module("torch_vm_cases")
     except (ImportError, OSError) as e:
         print(f"chip_smoke: the port is not importable here ({e}); run "
               f"from the root of a checkout", file=sys.stderr)
@@ -2300,7 +2388,8 @@ def main(argv: list[str] | None = None) -> int:
         phase = "K2 check"
         k2_err = phase_k2_check(torch, ck, bm, dev, args.seed)
         phase = "K3 check"
-        k3_err = phase_k3_check(torch, ck, bm, dev, args.seed)
+        k3_err = phase_k3_check(torch, ck, bm, nvcc_build, vm_cases, dev,
+                                args.seed)
         words = (1 << 20) // 32
         phase = "K3-kinds check"
         k3k_err = phase_k3k_check(torch, ck, bm, kp, edges, dev, args.seed)
@@ -2325,6 +2414,8 @@ def main(argv: list[str] | None = None) -> int:
                     "k2_us": out["k2"]["spread_us"],
                     "k3_us": out["k3"]["spread_us"],
                     "k3_shape": out["k3"]["shape"],
+                    "k3_all_slots_bound_ms": out["k3"]["all_slots_bound_ms"],
+                    "k3_host_plan_us": out["k3"]["host_plan_us"],
                     "bsi": out["bsi"],
                     "k4_us": out["k4"]["spread_us"],
                     "k5_us": out["k5"]["spread_us"],
@@ -2341,7 +2432,10 @@ def main(argv: list[str] | None = None) -> int:
                         for name, key, extra in (
                             ("vm_counts_kinds", "k3k_fixed",
                              ("all_slots_bound_ms", "host_plan_us")),
-                            ("vm_counts", "k3_fixed", ()))}}))
+                            ("vm_counts", "k3_fixed",
+                             ("all_slots_bound_ms", "host_plan_us")),
+                            ("vm_counts_16", "k3_fixed16",
+                             ("all_slots_bound_ms", "host_plan_us")))}}))
     log(json.dumps({"kernels": [
         kernel_line("gathered_count_and",
                     "pilosa_tpu_torch/ops/csrc/gathered_count_and.cu",
@@ -2352,7 +2446,8 @@ def main(argv: list[str] | None = None) -> int:
                     "pilosa_tpu/ops/pallas_kernels.py:454",
                     out["coalesced"]["k3_launches"],
                     max(k3_err, out["k3"]["max_abs_err"],
-                        out["k3_fixed"]["max_abs_err"]), out["k3"]),
+                        out["k3_fixed"]["max_abs_err"],
+                        out["k3_fixed16"]["max_abs_err"]), out["k3"]),
         kernel_line("vm_counts_kinds",
                     "pilosa_tpu_torch/ops/csrc/vm_counts_kinds.cu",
                     "pilosa_tpu/ops/pallas_kernels.py:489",

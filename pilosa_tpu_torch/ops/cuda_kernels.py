@@ -12,8 +12,13 @@ K3 -- ``vm_counts`` replaces the Pallas bitmap VM ``_vm_counts_kernel``
 for each (query q, domain slot d), gather ``L`` leaf containers of one
 pool through ``gidx``, interpret q's op-tape (ops/tape.py grammar,
 absolute register operands) and popcount the last register, as
-int32[B, D].  Source: ops/csrc/vm_counts.cu.  It is bound by bytes: 8
-KiB per gathered container.
+int32[B, D].  The host plans the launch (``vm_plan``): each query's live
+instructions and slots (``vm_tape_plan``), the distinct leaves among the
+live slots' directory vectors, and query groups that fit a block.  A
+block owns one domain slot and one query group and reads each distinct
+leaf's container once for all the group's queries.  Source:
+ops/csrc/vm_counts.cu.  It is bound by bytes: 8 KiB per distinct
+container.
 
 K3-kinds -- ``vm_counts_kinds`` replaces the Pallas kinds VM
 ``_vm_counts_kinds_pallas`` (pilosa_tpu/ops/pallas_kernels.py:489-504),
@@ -81,6 +86,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -104,7 +110,8 @@ _ll = ctypes.c_longlong
 _ENTRIES = {
     "gathered_count_and": ("gathered_count_and_launch",
                            [_c, _i, _c, _c, _i, _c, _c, _i, _c]),
-    "vm_counts": ("vm_counts_launch", [_c, _c, _c, _c, _i, _i, _i, _i, _c]),
+    "vm_counts": ("vm_counts_launch",
+                  [_c, _c, _c, _c] + [_i] * 7 + [_c]),
     "vm_counts_kinds": ("vm_counts_kinds_launch",
                         [_c, _c, _c, _c, _c, _c, _c] + [_i] * 8 + [_c]),
     "row_counts_masked": ("row_counts_masked_launch",
@@ -210,18 +217,39 @@ gathered_count_and.launches = 0
 # -------------------------------------------------------------------- K3
 
 
+#: int4 vectors a K3 thread holds per register and pass, in the order the
+#: plan tries them: a block of 128 threads walks a 2048-word container in
+#: 4 / vec passes
+VM_VECS = (2, 1)
+
+
+def vm_group_smem_bytes(leaves: int, scratch: int, queries: int,
+                        tape_len: int, vec: int = 1) -> int:
+    """Shared memory of one K3 block whose query group has ``leaves``
+    distinct leaves, ``scratch`` scratch registers and ``queries``
+    queries, for tapes of ``tape_len``, at ``vec`` int4 vectors per
+    thread and pass: the register file of 128 threads, per query its
+    renamed tape (2 + ``tape_len`` ints) and four warp sums, and a row per
+    leaf (vm_counts.cu ``vm_counts_smem_bytes``)."""
+    return ((leaves + scratch) * vec * 128 * 16
+            + (queries * (6 + tape_len) + leaves) * 4)
+
+
 def vm_smem_bytes(tape_len: int, slots: int) -> int:
-    """Shared memory one K3 block needs: the int4 register file of 128
-    threads, the tape and the cell's row indices (vm_counts.cu
-    ``smem_bytes``)."""
-    return (slots + tape_len) * 128 * 16 + (3 * tape_len + slots) * 4
+    """K3's admission bound for a program of ``tape_len`` instructions
+    over ``slots`` leaf slots: a block of one query at one vector per
+    thread and pass, with every slot live and distinct and a scratch
+    register per instruction, more than any one query needs (the last
+    live instruction's output is never stored).  A program admitted by it
+    always has a plan (``vm_groups``)."""
+    return vm_group_smem_bytes(slots, tape_len, 1, tape_len)
 
 
 def vm_kinds_smem_bytes(tape_len: int, slots: int) -> int:
     """Shared memory one K3-kinds block needs: K3's register file, the
     tape packed one int per instruction, and a row index and an array
-    position per slot (vm_counts_kinds.cu ``smem_bytes``).  It is at most
-    ``vm_smem_bytes`` wherever that fits ``VM_SMEM_LIMIT``."""
+    position per slot (vm_counts_kinds.cu ``smem_bytes``).  It admits
+    the same (L, T) as ``vm_smem_bytes``: L + T <= 113."""
     return (slots + tape_len) * 128 * 16 + (tape_len + 2 * slots) * 4
 
 
@@ -316,19 +344,186 @@ def vm_counts_plain(pool: torch.Tensor, prog: torch.Tensor,
     return out
 
 
-def _vm_launch(pool: torch.Tensor, prog: torch.Tensor, gidx: torch.Tensor
-               ) -> torch.Tensor:
-    """Launch K3 on tensors already checked and on the pool's card."""
+#: K3's instruction flags, in the opcode byte: operand a is the previous
+#: live instruction's output, which the thread still holds; the output is
+#: read again later, so it is stored in its scratch register
+VM_PREV, VM_STORE = 0x10, 0x20
+
+
+@functools.lru_cache(maxsize=4096)
+def _query_plan(tape: bytes, tape_len: int, slots: int
+                ) -> tuple[np.ndarray, tuple, int]:
+    """One query's part of K3's plan, from its int32 [T, 3] instructions
+    as bytes: its ``_plan_row`` with the live instructions rewritten for
+    the kernel, its live leaf slots and its scratch registers.  An
+    operand a that is the previous live instruction's output carries
+    ``VM_PREV`` (an AND, OR or XOR whose operand b is that output swaps
+    its operands first);
+    an output that a later instruction reads otherwise carries
+    ``VM_STORE`` and gets the next scratch register, ``slots + s``; the
+    other outputs are never stored (the last one is only counted)."""
+    base = _plan_row(tape, tape_len, slots)
+    n = int(base[0])
+    ins = []
+    prev = None
+    for word in base[2:2 + n].view(np.uint32).tolist():
+        op, a, b, dst = word & 0xff, word >> 8 & 0xff, word >> 16 & 0xff, \
+            word >> 24
+        if b == prev and a != prev and op < 3:  # AND, OR, XOR commute
+            a, b = b, a
+        ins.append((op, a, b, dst, a == prev))
+        prev = dst
+    read = {b for _op, _a, b, _d, _p in ins}
+    read.update(a for _op, a, _b, _d, use_prev in ins if not use_prev)
+    scratch = {dst: slots + i for i, dst in enumerate(
+        d for _op, _a, _b, d, _p in ins if d in read)}
+    row = base.copy()
+    words = row[2:2 + n].view(np.uint32)
+    for i, (op, a, b, dst, use_prev) in enumerate(ins):
+        words[i] = (op | (VM_PREV if use_prev else 0)
+                    | (VM_STORE if dst in scratch else 0)
+                    | (0 if use_prev else scratch.get(a, a)) << 8
+                    | scratch.get(b, b) << 16 | scratch.get(dst, 0) << 24)
+    row.flags.writeable = False
+    live = tuple(np.flatnonzero(row[2 + tape_len:]).tolist())
+    return row, live, len(scratch)
+
+
+def _distinct_rows(flat: np.ndarray, srcs: list) -> tuple[list, list]:
+    """An id for each row ``flat[s]`` of ``srcs``, equal rows with equal
+    ids, and the first source of each id.  Rows are keyed by their first
+    and last entries; a row whose key is taken is compared in full with
+    the rows of that key."""
+    keys = zip(flat[:, 0].take(srcs).tolist(),
+               flat[:, -1].take(srcs).tolist())
+    ids: list = []
+    reps: list = []
+    raws: dict = {}
+    by_key: dict = {}
+    for s, key in zip(srcs, keys):
+        cands = by_key.setdefault(key, [])
+        u = None
+        if cands:
+            raw = flat[s].tobytes()
+            for c in cands:
+                if c not in raws:
+                    raws[c] = flat[reps[c]].tobytes()
+                if raws[c] == raw:
+                    u = c
+                    break
+        if u is None:
+            u = len(reps)
+            reps.append(s)
+            cands.append(u)
+        ids.append(u)
+    return ids, reps
+
+
+def vm_groups(leaves: list, scratch: list, tape_len: int,
+              limit: int = VM_SMEM_LIMIT) -> list:
+    """Cut a launch's queries, in order, into K3's query groups:
+    ``leaves[q]`` the distinct leaf ids of query q's live slots,
+    ``scratch[q]`` its scratch registers.  A query joins the group before
+    it while that group's block still fits ``limit``
+    (``vm_group_smem_bytes``); otherwise it starts a group.  Returns
+    (first query, queries) per group."""
+    groups = []
+    start, members, scr = 0, set(), 0
+    for q, (ls, s) in enumerate(zip(leaves, scratch)):
+        grown, grown_scr = members.union(ls), max(scr, s)
+        if q > start and vm_group_smem_bytes(
+                len(grown), grown_scr, q - start + 1, tape_len) > limit:
+            groups.append((start, q - start))
+            start, grown, grown_scr = q, set(ls), s
+        members, scr = grown, grown_scr
+    groups.append((start, len(leaves) - start))
+    return groups
+
+
+class VMPlan(NamedTuple):
+    """K3's launch plan (``vm_plan``)."""
+
+    #: int32: per query its plan row with each slot's group-local leaf,
+    #: per group (first query, queries, first leaf, leaves, scratch), per
+    #: distinct leaf l * B + q of a live slot naming it (vm_counts.cu)
+    meta: torch.Tensor
+    tape_len: int
+    n_groups: int
+    #: distinct leaves, summed over the groups
+    n_leaves: int
+    #: int4 vectors per thread and pass (``VM_VECS``)
+    vec: int
+    #: dynamic shared memory of the launch's largest block
+    smem: int
+
+
+def vm_plan(prog: torch.Tensor, gidx: torch.Tensor,
+            vec: int | None = None) -> VMPlan:
+    """What K3 reads besides the pool and ``gidx`` for a checked program
+    ``prog`` int32[B, T, 3] over ``gidx`` int32[L, B, D], planned on the
+    host: each query's live instructions and slots (``_query_plan``,
+    cached by the tape's bytes), the distinct leaves among the live
+    slots' directory vectors ``gidx[l, q, :]``, query groups whose
+    blocks fit ``VM_SMEM_LIMIT`` at one vector per thread and pass
+    (``vm_groups``), and the first of ``VM_VECS`` at which every group
+    still fits (or ``vec``, where they fit).  A ``gidx`` on the card is
+    copied to the host once for it.  ``meta`` is on the CPU."""
     n_q, tape_len, _ = prog.shape
     slots, _, domain = gidx.shape
+    prog_np = prog.to("cpu").numpy()
+    flat = gidx.to("cpu").numpy().reshape(slots * n_q, domain)
+    queries = [_query_plan(prog_np[q].tobytes(), tape_len, slots)
+               for q in range(n_q)]
+    srcs = [l * n_q + q for q, (_r, live, _s) in enumerate(queries)
+            for l in live]
+    ids, reps = _distinct_rows(flat, srcs)
+    leaves, pos = [], 0
+    for _row, live, _s in queries:
+        leaves.append(ids[pos:pos + len(live)])
+        pos += len(live)
+    rows = np.stack([row for row, _l, _s in queries])
+    rows[:, 2 + tape_len:] = -1
+    groups, leaf_src, local_ids = [], [], []
+    for q0, nq in vm_groups(leaves, [s for _r, _l, s in queries], tape_len):
+        local: dict = {}
+        for q in range(q0, q0 + nq):
+            local_ids.extend(local.setdefault(u, len(local))
+                             for u in leaves[q])
+        scratch = max(queries[q][2] for q in range(q0, q0 + nq))
+        groups.append((q0, nq, len(leaf_src), len(local), scratch))
+        leaf_src.extend(reps[u] for u in local)
+    src = np.asarray(srcs, dtype=np.int64)
+    rows[src % n_q, 2 + tape_len + src // n_q] = local_ids
+    meta = np.concatenate([rows.ravel(),
+                           np.asarray(groups, dtype=np.int32).ravel(),
+                           np.asarray(leaf_src, dtype=np.int32)])
+    for width in (vec,) if vec else VM_VECS:
+        smem = max(vm_group_smem_bytes(nu, scratch, nq, tape_len, width)
+                   for _q0, nq, _u0, nu, scratch in groups)
+        if smem <= VM_SMEM_LIMIT:
+            break
+    else:
+        raise ValueError(f"K3's query groups do not fit {vec} vectors per "
+                         f"thread")
+    return VMPlan(torch.from_numpy(meta), tape_len, len(groups),
+                  len(leaf_src), width, smem)
+
+
+def _vm_launch(pool: torch.Tensor, gidx: torch.Tensor, plan: VMPlan
+               ) -> torch.Tensor:
+    """Launch K3 on tensors already checked and on the pool's card:
+    ``gidx`` int32[L, B, D] and ``plan = vm_plan(prog, gidx)`` with its
+    ``meta`` on that card."""
+    slots, n_q, domain = gidx.shape
     out = torch.empty((n_q, domain), dtype=torch.int32, device=pool.device)
     if out.numel() == 0:
         return out
     launch = _launcher("vm_counts")
     with torch.cuda.device(pool.device):
         stream = torch.cuda.current_stream(pool.device).cuda_stream
-        rc = launch(pool.data_ptr(), prog.data_ptr(), gidx.data_ptr(),
-                    out.data_ptr(), n_q, tape_len, slots, domain, stream)
+        rc = launch(pool.data_ptr(), gidx.data_ptr(), plan.meta.data_ptr(),
+                    out.data_ptr(), n_q, plan.tape_len, slots, domain,
+                    plan.n_groups, plan.vec, plan.smem, stream)
     if rc != 0:
         raise RuntimeError(f"vm_counts launch failed: CUDA error {rc}")
     return out
@@ -339,16 +534,23 @@ def vm_counts(pool: torch.Tensor, prog: torch.Tensor,
     """Per-cell popcounts int32[B, D] of a batch of op-tapes
     (``prog`` int32[B, T, 3]) over one pooled operand (``pool``
     int32[R, 2048]) gathered through ``gidx`` int32[L, B, D].  A CUDA
-    pool launches K3, after copying a host-built ``prog``/``gidx`` to
-    its card; a CPU pool computes ``vm_counts_plain``.  Ticks no
-    dispatch: the caller (ops/tape.execute_vm) owns the one ``vm``
-    tick, as in the reference."""
+    pool launches K3 after planning the launch on the host
+    (``vm_plan``) and copying the plan and a host-built ``gidx`` to its
+    card; a CPU pool computes ``vm_counts_plain``.  Ticks no dispatch:
+    the caller (ops/tape.execute_vm) owns the one ``vm`` tick, as in the
+    reference."""
     _check_vm(pool, prog, gidx)
     if pool.device.type != "cuda":
         return vm_counts_plain(pool, prog, gidx)
-    out = _vm_launch(pool, prog.to(pool.device), gidx.to(pool.device))
-    if out.numel():
-        _count(vm_counts)
+    n_q = int(prog.shape[0])
+    domain = int(gidx.shape[2])
+    if n_q * domain == 0:
+        return torch.empty((n_q, domain), dtype=torch.int32,
+                           device=pool.device)
+    plan = vm_plan(prog, gidx)
+    out = _vm_launch(pool, gidx.to(pool.device),
+                     plan._replace(meta=plan.meta.to(pool.device)))
+    _count(vm_counts)
     return out
 
 
@@ -411,10 +613,11 @@ def vm_counts_kinds_plain(bpool: torch.Tensor, apool: torch.Tensor,
 
 
 def vm_tape_plan(tape, slots: int) -> tuple[list, list, int]:
-    """K3-kinds' tape plan for one query's absolute instructions ``tape``
-    [(op, a, b), ...] over ``slots`` leaf slots: a COPY's register
-    aliases its operand, and only what the result reaches runs
-    (ops/tape.py pads tapes with COPYs and pads slots onto the zero row).
+    """The tape plan of K3 and K3-kinds for one query's absolute
+    instructions ``tape`` [(op, a, b), ...] over ``slots`` leaf slots: a
+    COPY's register aliases its operand, and only what the result reaches
+    runs (ops/tape.py pads tapes with COPYs and pads slots onto the zero
+    row).
     Returns the live instructions as (op, a, b, dst) in order, the live
     leaf slots and the result register, which is the last live
     instruction's ``dst`` or, when none is live, a leaf slot."""

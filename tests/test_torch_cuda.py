@@ -3,7 +3,9 @@
 (``vm_counts_kinds``, the VM over array and run containers), K4
 (``row_counts_masked``, the TopN scan), K5 (``masked_matrix_counts``,
 the GroupBy count), K6 (``bsi_compare``, the BSI ripple) and K1
-(``count_and``) against their plain versions, the executor's
+(``count_and``) against their plain versions (K3 also on the launches
+of tests/torch_vm_cases.py, its shared memory formula against the
+source's), the executor's
 ``Count(Intersect(Row, Row))`` route launching K2 on ``cuda`` pools, a
 coalesced heterogeneous batch launching K3 once (both with container
 kinds off, so that the sparse rows stay bitmap blocks), K3-kinds at the
@@ -25,6 +27,8 @@ builds the kernel with nvcc.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -42,6 +46,7 @@ from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 # tests/ is on sys.path under pytest (rootdir-less test files); another
 # installed package may be named ``tests``
 import torch_kinds_edges as edges  # noqa: E402
+import torch_vm_cases as vm_cases  # noqa: E402
 
 CW = ck.CONTAINER_WORDS
 
@@ -175,6 +180,54 @@ def test_k3_refuses_an_index_past_the_pool(cuda_device):
     with pytest.raises(IndexError):
         ck.vm_counts(bm.to_tensor(pool, cuda_device), torch.from_numpy(prog),
                      torch.from_numpy(gidx).to(cuda_device))
+
+
+@functools.lru_cache(maxsize=1)
+def _k3_cases() -> dict:
+    return {label: case for label, *case in vm_cases.k3_cases(92, 64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["shared", "same_row", "pads", "caps",
+                                   "grouped", "l64t32"])
+def test_k3_plans_match_the_plain_version_in_one_launch(cuda_device, label):
+    """tests/torch_vm_cases.py at D = 64: 16 queries sharing five leaves,
+    one row in two slots, pads and COPY chains, the caps (16, 32), a
+    batch cut into query groups, and (L, T) = (64, 32)."""
+    pool, prog, gidx = _k3_cases()[label]
+    tpool = bm.to_tensor(pool, cuda_device)
+    tprog, tgidx = torch.from_numpy(prog), torch.from_numpy(gidx)
+    plan = ck.vm_plan(tprog, tgidx)
+    if label == "grouped":
+        assert plan.n_groups > 1
+    before = ck.vm_counts.launches
+    got = ck.vm_counts(tpool, tprog, tgidx)
+    torch.cuda.synchronize()
+    assert ck.vm_counts.launches == before + 1
+    want = ck.vm_counts_plain(tpool, tprog, tgidx)
+    assert torch.equal(got, want)
+    # one vector per thread and pass, where the plan took two, gives the
+    # same counts
+    if plan.vec == 2:
+        tgidx = tgidx.to(cuda_device)
+        p = ck.vm_plan(tprog, tgidx, 1)
+        p = p._replace(meta=p.meta.to(cuda_device))
+        assert torch.equal(ck._vm_launch(tpool, tgidx, p), want)
+
+
+@pytest.mark.cuda
+def test_k3_shared_memory_formula_is_the_sources(cuda_device):
+    import ctypes
+
+    from pilosa_tpu_torch.ops import nvcc_build
+
+    fn = nvcc_build.load("vm_counts").vm_counts_smem_bytes
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5
+    for args in ((1, 0, 1, 1, 1), (5, 1, 4, 4, 2), (5, 0, 16, 4, 2),
+                 (16, 32, 1, 32, 1), (112, 0, 7, 32, 1), (64, 32, 1, 32, 1),
+                 (20, 3, 8, 8, 2)):
+        assert fn(*args) == ck.vm_group_smem_bytes(*args)
 
 
 @pytest.mark.cuda
