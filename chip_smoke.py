@@ -9,8 +9,18 @@ Count trees over a 256-shard x 2^20-column index, alone and concurrently
 through the coalescer, TopN, Rows and GroupBy over the same index, range
 rows and Sum/Min/Max over an int field on it, and Count/Row trees over
 array, run and bitmap containers ([containers] kinds, the server's
-default) -- and holds every hand-written kernel against its plain
-PyTorch version on the card:
+default), and writes that wait in ingest delta planes ([ingest]
+delta-enabled, the server's default) under coalesced, dense and
+per-shard reads -- and holds every hand-written kernel against its plain
+PyTorch version on the card.
+
+The server runs the port's defaults, with one knob set: its compactor
+scans once an hour (``INGEST_INTERVAL``), so that every delta merge in
+the run is a writer's (a fragment's snapshot past ``max_op_n`` WAL
+operations, the 64 MiB budget), a query's (``?nodelta=1``, a whole-matrix
+read) or an explicit compactor scan, and no route depends on timing.
+After each field's import one scan merges what is left, so that the
+paths read base rows, as they would once the compactor had run.
 
 1. header: the card's name and power limit (nvidia-smi);
 2. build: the K2, K3, K3-kinds, K4, K5, K6 and K1 sources, one nvcc each
@@ -40,8 +50,11 @@ PyTorch version on the card:
    imported through ``POST .../import-roaring/{shard}``; each query once
    cold and ``WARM_RUNS`` times warm over HTTP with ``?nocoalesce=true``
    (and the K2 query as often through the API in the server's process),
-   every answer equal to a numpy ``bitwise_count`` oracle; a Set and a
-   recount.  Launch counts are zeroed just before and read just after;
+   every answer equal to a numpy ``bitwise_count`` oracle; a Set, which
+   waits in a delta plane, so that the recount is dense (``dfuse``, no
+   kernel), then a ``?nodelta=1`` recount (the delta merged first, K2) and
+   the recount warm (K2).  Launch counts are zeroed just before and read
+   just after;
 6. the lone query under the coalescer: the same warm Count(Intersect)
    ``WARM_RUNS`` times without the flag, each one K3 launch;
 7. the coalesced path: field g's rows 1-3 at 8 % fill; 16 structurally
@@ -93,6 +106,18 @@ PyTorch version on the card:
    exactly at its launch sites (counts zeroed just before, read just
    after); then every query again with kinds off, equal answers, and
    field k's pool bytes on the card with kinds on and off;
+11c. the ingest phase (``phase_ingest``): PQL Sets and Clears on f rows
+   1-3, g rows 2-3 and k rows 1, 2, 9, 10, 17, a sparse ``/import`` batch
+   and a sparse ``/import-roaring`` payload, all pending in delta planes
+   (``GET /debug/ingest``); the 16 coalesced trees over those rows for
+   ``INGEST_ROUNDS`` rounds, every query a ``dfuse`` tape on K3, and the
+   16 kinds trees on K3-kinds (counts zeroed just before, read just
+   after); a ``?nocoalesce=true`` Count and a Row root over delta rows on
+   the dense ``dfuse`` path; ``?nodelta=1`` (field f merged, K2), then the
+   same Count on K2; host-clock times of a warm coalesced Count over delta
+   rows and after compaction, of the first Count after a Set, and of the
+   write rate through ``/import``; every answer equal to the numpy
+   oracle, which takes every write;
 12. K3 timing on the inputs of one real flush of step 7, K2 timing on
    step 5's pools, K4 on the fused TopN's inputs and K5 on one shard's
    GroupBy level-1 inputs, both recorded from step 9, K6 on a range
@@ -106,7 +131,9 @@ PyTorch version on the card:
    rounds' tree shapes over arrays at ~0.1 %, 16 runs of 512 and bitmaps
    at 8 % (K3-kinds), or over bitmap rows at 8 % (K3); and K3 on a wide
    fixed launch, all 16 shapes over the same five rows of a 64-shard
-   index (B=16, D=1024).
+   index (B=16, D=1024); and, for the ingest phase, K3-kinds and K3 on
+   the same fixed launches with every leaf delta-fused over set and clear
+   overlays made from the seed (1/64 of their containers live).
 
 Latencies are host-clock times; each is reported as the median with its
 10th and 90th percentiles and the sample count.
@@ -184,6 +211,15 @@ FIXED_TREES = (0, 5, 9, 12)  # which of the 16 tree shapes they run
 #: the wide K3 launch: all 16 tree shapes over the same five rows of a
 #: 64-shard index, the widest batch ``max_prefetch`` admits there
 WIDE_SHARDS = 64
+INGEST_INTERVAL = 3600.0  # s: the smoke server's compactor scan period
+INGEST_FLIPS = 4  # PQL Sets and as many Clears on each ingest-phase row
+INGEST_IMPORT_BITS = 2000  # the ingest phase's sparse /import batch
+INGEST_ROUNDS = 10  # coalesced rounds over rows with pending deltas
+INGEST_WARM = 30  # warm runs of the timed ingest-phase Counts
+INGEST_SETS = 30  # Set-then-Count samples
+INGEST_BATCHES = 10  # timed /import batches...
+INGEST_BATCH_BITS = 100_000  # ...of this many bits each
+OVERLAY_LIVE = 1 / 64  # containers an overlay row of a fixed launch holds
 #: domain of tests/torch_vm_cases.py's launches in the K3 check
 K3_CASES_D = 128
 
@@ -549,8 +585,41 @@ def roaring_payload(roaring, rows: dict, shard: int, cpr: int) -> bytes:
     return roaring.encode(np.concatenate(keys), np.concatenate(blocks))
 
 
+def ingest_doc(http: Http) -> dict:
+    """GET /debug/ingest."""
+    with urllib.request.urlopen(http.uri + "/debug/ingest",
+                                timeout=600) as resp:
+        return json.loads(resp.read())
+
+
+def compact_all() -> dict:
+    """One compactor scan that merges every pending delta, as the
+    server's compactor does at its next interval (forced here: the smoke
+    server's interval is an hour, so that nothing merges mid-phase).
+    Returns the compactor's totals before and after."""
+    from pilosa_tpu_torch.ingest import compactor
+
+    c = compactor.compactor()
+    before = c.totals()
+    t0 = time.perf_counter()
+    n = c.run_once(force=True)
+    after = c.totals()
+    check(after["fragmentsPending"] == 0, f"deltas still pending: {after}")
+    return {"fragments": n, "bits": after["compactedBits"]
+            - before["compactedBits"], "ms": (time.perf_counter() - t0) * 1e3,
+            "before": before}
+
+
 def import_field(http: Http, roaring, field: str, rows: dict, n_shards: int,
                  cpr: int) -> None:
+    """One roaring payload per shard.  With [ingest] deltas on, a payload
+    of at most 2^22 bits lands in the fragment's delta plane (every one
+    here does); past ``max_op_n`` WAL operations the fragment writes its
+    snapshot, which merges the delta first (the reference queues that
+    snapshot in the background), and past the 64 MiB pending budget a
+    writer merges its own fragment inline.  A compactor scan then merges
+    whatever is left, so that the phases that follow read base rows, as
+    they would once the server's compactor had run."""
     check(http.post(f"/index/i/field/{field}", b"{}")[0] == 200,
           f"create field {field}")
     t0 = time.perf_counter()
@@ -562,8 +631,14 @@ def import_field(http: Http, roaring, field: str, rows: dict, n_shards: int,
                              blob, "application/octet-stream")
         check(st == 200, f"import-roaring {field} shard {s}: HTTP {st} "
                          f"{body!r}")
+    t1 = time.perf_counter()
+    merged = compact_all()
+    before = merged["before"]
     log(f"import: field {field}, {n_shards} roaring payloads, {sent} bytes, "
-        f"in {time.perf_counter() - t0:.1f} s")
+        f"in {t1 - t0:.1f} s; {before['fragmentsPending']} fragments "
+        f"pending ({before['pendingBits']} bits, {before['inlineFlushes']} "
+        f"inline flushes so far), merged by one compactor scan in "
+        f"{merged['ms']:.0f} ms")
 
 
 def tree_pql(tree) -> str:
@@ -605,15 +680,15 @@ def phase_k2_path(torch, ck, bm, containers, srv, http: Http, data: dict
     out: dict = {"queries": {}}
     nocoal = "?nocoalesce=true"
 
-    def run(label, tree, route):
-        """The query once cold, then WARM_RUNS times warm."""
+    def run(label, tree, route, flags=nocoal, runs=1 + WARM_RUNS):
+        """The query once cold, then ``runs - 1`` times warm."""
         pql = f"Count({tree_pql(tree)})"
         want = oracle(tree, data)
         k0 = ck.launch_counts()
         c0 = containers.counters()
         lat = []
-        for _ in range(1 + WARM_RUNS):
-            res, ms = http.query(pql, nocoal)
+        for _ in range(runs):
+            res, ms = http.query(pql, flags)
             lat.append(ms)
             check(res == [want], f"{pql}: got {res}, oracle {want}")
         k1 = ck.launch_counts()
@@ -630,12 +705,14 @@ def phase_k2_path(torch, ck, bm, containers, srv, http: Http, data: dict
             check(served == 0, f"{pql}: served compressed")
         else:
             check(served == len(lat), f"{pql}: {served} compressed")
-        warm = spread(lat[1:])
         out["queries"][label] = {
-            "pql": pql, "count": want, "route": route,
-            "first_ms": lat[0], "warm_ms": warm}
-        log(f"{label}: {pql} = {want} ({route}); first "
-            f"{lat[0]:.2f} ms, warm over HTTP {fmt(warm)}")
+            "pql": pql, "flags": flags, "count": want, "route": route,
+            "first_ms": lat[0]}
+        if runs > 1:
+            out["queries"][label]["warm_ms"] = spread(lat[1:])
+        log(f"{label}: {pql}{flags} = {want} ({route}); first "
+            f"{lat[0]:.2f} ms" + (f", warm over HTTP {fmt(spread(lat[1:]))}"
+                                  if runs > 1 else ""))
 
     # ---- the K2 path: counts zeroed just before, read just after
     ck.reset_launch_counts()
@@ -659,7 +736,10 @@ def phase_k2_path(torch, ck, bm, containers, srv, http: Http, data: dict
         check(res == [want0], f"API {pql0} -> {res}")
     api = out["queries"]["intersect_k2"]["api_ms"] = spread(api_lat)
     log(f"intersect_k2 through the API in the server's process: {fmt(api)}")
-    # a write, then the recount sees it
+    # a write, then the recount sees it: the Set lands in the fragment's
+    # delta plane, so the container engine declines the row and the
+    # recount fuses the overlay densely (dfuse, no kernel); ?nodelta=1
+    # merges the delta first and the recount is K2's again
     cand = rows[2] & ~rows[1]
     flat = np.flatnonzero(cand.reshape(-1))
     check(len(flat) > 0, "no column to set")
@@ -670,9 +750,14 @@ def phase_k2_path(torch, ck, bm, containers, srv, http: Http, data: dict
     res, _ms = http.query(f"Set({col}, f=1)")
     check(res == [True], f"Set({col}, f=1) -> {res}")
     rows[1].reshape(-1)[w] |= np.uint32(1) << np.uint32(bit)
-    run("intersect_k2_after_set", *queries[0][1:])
-    check(out["queries"]["intersect_k2_after_set"]["count"] == want0 + 1,
+    run("intersect_dfuse_after_set", queries[0][1], "dense")
+    check(out["queries"]["intersect_dfuse_after_set"]["count"] == want0 + 1,
           "the recount did not see the Set")
+    run("intersect_k2_nodelta", queries[0][1], "k2",
+        "?nodelta=1&nocoalesce=true", runs=1)
+    check(not srv.holder.index("i").field("f").view("standard")
+          .delta_stats(), "?nodelta=1 left field f's delta pending")
+    run("intersect_k2_after_compaction", *queries[0][1:])
     out["launches"] = ck.launch_counts()
     # ---- end of the K2 path
     log(f"K2 path launches: {out['launches']}")
@@ -1271,45 +1356,100 @@ def tree_shape(tree, leaves: list):
     return ("leaf", len(leaves) - 1)
 
 
-def fixed_program(tape, trees, rows_of) -> list:
+def dfuse_shape(tree, leaves: list):
+    """``tree_shape`` with every leaf delta-fused, as the VM stages a row
+    with a pending ingest delta: ``("dfuse", base, set, clear)``, the
+    leaves ``leaf``, ``("set", leaf)`` and ``("clear", leaf)``."""
+    if tree[0] in _OPS:
+        return (tree[0],) + tuple(dfuse_shape(c, leaves) for c in tree[1:])
+    i = len(leaves)
+    leaves += [tree, ("set", tree), ("clear", tree)]
+    return ("dfuse", ("leaf", i), ("leaf", i + 1), ("leaf", i + 2))
+
+
+def fixed_program(tape, trees, rows_of, delta: bool = False) -> list:
     """The VM batch of ``trees`` for tape.vm_program: each tree's tape and
     its leaves' directory entries, leaf ``(f, r)`` gathering the global
-    rows ``rows_of[(f, r)]`` int32[D]."""
+    rows ``rows_of[(f, r)]`` int32[D]; with ``delta`` every leaf
+    delta-fused over ``rows_of[("set", leaf)]`` and ``("clear", leaf)``."""
     batch = []
     for tree in trees:
         leaves: list = []
-        shape = tree_shape(tree, leaves)
+        shape = (dfuse_shape if delta else tree_shape)(tree, leaves)
         batch.append((tape.compile_shape(shape, len(leaves)),
                       [rows_of[leaf] for leaf in leaves]))
     return batch
 
 
-def k3_fixed_launch(tape, seed: int, n_shards: int, trees: list) -> tuple:
+def overlay_rows(rng, leaves: list, n: int, base: int) -> tuple:
+    """Set and clear overlays of ``leaves`` as a delta plane holds them:
+    a fraction OVERLAY_LIVE of each row's ``n`` containers holds a few
+    written bits, every other container is absent.  Returns the live
+    blocks (to place at pool row ``base`` on) and each overlay's global
+    rows, -1 where absent."""
+    blocks, rows_of = [], {}
+    for leaf in leaves:
+        for kind in ("set", "clear"):
+            live = np.flatnonzero(rng.random(n) < OVERLAY_LIVE)
+            b = np.zeros((len(live), 2048), np.uint32)
+            for j in range(len(live)):
+                w = rng.integers(0, 2048, size=8)
+                b[j, w] |= np.uint32(1) << rng.integers(
+                    0, 32, size=8).astype(np.uint32)
+            ix = np.full(n, -1, dtype=np.int32)
+            ix[live] = base + sum(len(x) for x in blocks) + np.arange(
+                len(live), dtype=np.int32)
+            blocks.append(b)
+            rows_of[(kind, leaf)] = ix
+    return np.concatenate(blocks), rows_of
+
+
+def vm_batch_program(tape, batch: list, zero: int) -> tuple:
+    """(prog, gidx) of a batch at its own size class."""
+    tb, lb = tape.size_class(max(len(t.instrs) for t, _ in batch),
+                             max(t.n_leaves for t, _ in batch))
+    return tape.vm_program(batch, zero, tb, lb)
+
+
+def k3_fixed_launch(tape, seed: int, n_shards: int, trees: list,
+                    delta: bool = False) -> tuple:
     """K3's fixed launch made from the seed: ``trees`` (of the coalesced
     path's) over five rows at ~8 % fill, one container per domain slot of
-    a 2^20-column row over ``n_shards`` shards.  Returns the pool's blocks
-    and the program (prog, gidx) as numpy and the zero row."""
+    a 2^20-column row over ``n_shards`` shards; with ``delta`` every leaf
+    delta-fused over overlays of its own (``overlay_rows``).  Returns the
+    pool's blocks and the program (prog, gidx) as numpy and the zero
+    row."""
     rng = np.random.default_rng(seed + 51)
     leaves = [("f", 1), ("g", 2), ("f", 2), ("g", 3), ("f", 3)]
     n = n_shards * 16
-    blocks = np.concatenate(
-        [sparse_rows(rng, n_shards, (1 << 20) // 32).reshape(n, 2048)
-         for _ in leaves] + [np.zeros((1, 2048), np.uint32)])
+    parts = [sparse_rows(rng, n_shards, (1 << 20) // 32).reshape(n, 2048)
+             for _ in leaves]
     rows_of = {leaf: np.arange(i * n, (i + 1) * n, dtype=np.int32)
                for i, leaf in enumerate(leaves)}
+    if delta:
+        ov, ov_rows = overlay_rows(np.random.default_rng(seed + 55), leaves,
+                                   n, len(leaves) * n)
+        parts.append(ov)
+        rows_of.update(ov_rows)
+    blocks = np.concatenate(parts + [np.zeros((1, 2048), np.uint32)])
     zero = len(blocks) - 1
-    batch = fixed_program(tape, trees, rows_of)
-    prog_np, gidx_np = tape.vm_program(batch, zero, 4, 4)
+    rows_of = {k: np.where(v < 0, zero, v).astype(np.int32)
+               for k, v in rows_of.items()}
+    batch = fixed_program(tape, trees, rows_of, delta)
+    prog_np, gidx_np = (vm_batch_program(tape, batch, zero) if delta
+                        else tape.vm_program(batch, zero, 4, 4))
     return blocks, prog_np, gidx_np, zero
 
 
 def phase_k3_fixed(torch, ck, tape, bm, dev, seed: int, card: dict,
-                   n_shards: int, trees: list) -> dict:
+                   n_shards: int, trees: list, delta: bool = False) -> dict:
     """K3 on its fixed launch (``k3_fixed_launch``)."""
     blocks, prog_np, gidx_np, zero = k3_fixed_launch(tape, seed, n_shards,
-                                                     trees)
+                                                     trees, delta)
+    what = ("bitmap rows at 8 % under dfuse overlays" if delta
+            else "bitmap rows at 8 %")
     return k3_timing(torch, ck, f"a fixed launch (B={len(trees)}, "
-                     f"D={n_shards * 16}, bitmap rows at 8 %)", len(trees),
+                     f"D={n_shards * 16}, {what})", len(trees),
                      bm.to_tensor(blocks, dev), prog_np, gidx_np, zero, card)
 
 
@@ -2121,10 +2261,316 @@ def phase_kinds(ck, tape, containers, srv, http: Http, roaring, cpr: int,
     out["pool_bytes"] = {"kinds_on": on, "kinds_off": off,
                          "held_ratio": off["held"] / on["held"],
                          "live_ratio": off["live"] / on["live"]}
+    out["data"] = data  # for the ingest phase's writes and oracle
     log(f"kinds pool bytes of field k's 24 rows: kinds on {on}, kinds off "
         f"{off}; off/on {out['pool_bytes']['held_ratio']:.2f} held, "
         f"{out['pool_bytes']['live_ratio']:.2f} live; every query equal with "
         f"kinds off")
+    return out
+
+
+# ---------------------------------------------------------------- ingest
+
+
+@contextlib.contextmanager
+def staged_shapes(containers):
+    """The shapes the VM stages inside the block (None for a decline)."""
+    shapes: list = []
+    real = containers.stage_vm
+
+    def stage(*a, **k):
+        st = real(*a, **k)
+        shapes.append(None if st is None else st.shape)
+        return st
+
+    containers.stage_vm = stage
+    try:
+        yield shapes
+    finally:
+        containers.stage_vm = real
+
+
+def flip_bits(rng, http: Http, rows: dict, field: str, r: int,
+              n: int) -> list:
+    """``n`` PQL Sets of clear bits and ``n`` Clears of set bits of row
+    ``r`` (uint32[shards, words], updated), in random shards; returns the
+    touched columns."""
+    flat = rows[r].reshape(-1)
+    calls, cols = [], []
+    for want_set in (True, False):
+        for _ in range(n):
+            while True:
+                if want_set:
+                    col = int(rng.integers(0, flat.size * 32))
+                else:
+                    w = int(rng.choice(np.flatnonzero(flat)))
+                    bits = np.flatnonzero(np.unpackbits(
+                        flat[w:w + 1].view(np.uint8), bitorder="little"))
+                    col = w * 32 + int(rng.choice(bits))
+                w, b = col >> 5, np.uint32(1) << np.uint32(col & 31)
+                if bool(flat[w] & b) != want_set and col not in cols:
+                    break
+            flat[w] = flat[w] | b if want_set else flat[w] & ~b
+            calls.append(f"{'Set' if want_set else 'Clear'}({col}, "
+                         f"{field}={r})")
+            cols.append(col)
+    res, _ms = http.query(" ".join(calls))
+    check(res == [True] * len(calls), f"{field}{r} flips: {res}")
+    return cols
+
+
+def import_bits(http: Http, rows_by: dict, pairs: list) -> float:
+    """POST /index/i/field/{f}/import of (field, row, column) triples,
+    one request per field, updating ``rows_by[field][row]``; returns the
+    host-clock seconds of the requests."""
+    secs = 0.0
+    for f in sorted({p[0] for p in pairs}):
+        rs = [int(r) for g, r, _c in pairs if g == f]
+        cs = [int(c) for g, _r, c in pairs if g == f]
+        body = json.dumps({"rowIDs": rs, "columnIDs": cs}).encode()
+        t0 = time.perf_counter()
+        st, out = http.post(f"/index/i/field/{f}/import", body)
+        secs += time.perf_counter() - t0
+        check(st == 200, f"import into {f}: HTTP {st} {out[:200]!r}")
+        for r, c in zip(rs, cs):
+            flat = rows_by[f][r].reshape(-1)
+            flat[c >> 5] |= np.uint32(1) << np.uint32(c & 31)
+    return secs
+
+
+def coalesced_delta_rounds(ck, tape, containers, http: Http, trees: list,
+                           data: dict, kernel: str) -> dict:
+    """``INGEST_ROUNDS`` rounds of ``trees`` over rows with pending deltas
+    (counts zeroed just before, read just after): every answer equal to
+    the oracle, every query staged by the VM as a dfuse tape, ``kernel``
+    launched once per VM execution and no other kernel."""
+    wants = [oracle(t, data) for t in trees]
+    fire_rounds(http, trees, wants, 1)  # stage the leaves once
+    with staged_shapes(containers) as shapes:
+        ck.reset_launch_counts()
+        tape.reset_counters()
+        lat, wall = fire_rounds(http, trees, wants, INGEST_ROUNDS)
+        k = ck.launch_counts()
+        vm = tape.counters()
+    n_q = len(trees) * INGEST_ROUNDS
+    check(len(shapes) == n_q and all(
+        s is not None and "dfuse" in str(s) for s in shapes),
+        f"{sum(s is None for s in shapes)} declines, "
+        f"{sum(s is not None and 'dfuse' not in str(s) for s in shapes)} "
+        f"tapes without dfuse of {n_q}")
+    check(vm["vm.queries"] == n_q and vm["vm.fallbacks"] == 0,
+          f"vm counters {vm}")
+    check(k[kernel] == vm["vm.executions"] > 0
+          and all(v == 0 for n, v in k.items() if n != kernel),
+          f"launches {k}, vm.executions {vm['vm.executions']}")
+    sp = spread(lat)
+    out = {"queries": n_q, "rounds": INGEST_ROUNDS, "launches": k[kernel],
+           "queries_per_launch": n_q / vm["vm.executions"],
+           "latency_ms": sp, "qps": n_q / wall,
+           "programs": tape.debug()["vm"]["programs"]}
+    log(f"ingest {kernel} rounds: {len(trees)} trees x {INGEST_ROUNDS} "
+        f"rounds over rows with pending deltas, every answer exact, every "
+        f"query a dfuse tape; {kernel} launches {k[kernel]} = "
+        f"vm.executions, {out['queries_per_launch']:.2f} queries per "
+        f"launch; per request {fmt(sp)}; {out['qps']:.1f} queries/s; VM "
+        f"programs {out['programs']}")
+    return out
+
+
+def phase_ingest(ck, tape, containers, srv, http: Http, roaring, data: dict,
+                 kdata: dict, seed: int) -> dict:
+    """Streaming ingest on the served index ([ingest] deltas on, the
+    compactor scanning once an hour):
+
+    (a) PQL Sets and Clears on f rows 1-3, g rows 2-3 and k rows 1, 2, 9,
+        10, 17; a sparse /import batch (f in the first eighth of the
+        shards, g in the second, so that the pending planes stay under the
+        64 MiB budget) and a sparse
+        /import-roaring payload (under 512 bits a container) -- all land
+        in delta planes, which GET /debug/ingest shows pending;
+    (b) the 16 coalesced trees over those rows: each query a dfuse tape,
+        K3 launched once per VM execution (counts zeroed just before,
+        read just after);
+    (c) the same over the kinds rows: K3-kinds;
+    (d) a ?nocoalesce=true Count and a Row root over delta rows: the
+        container engine declines (the pools hold base rows) and the
+        dense dfuse path answers, no kernel;
+    (e) ?nodelta=1 merges field f's deltas first (K2 runs); after it no f
+        delta is pending and the same Count runs on K2 again;
+    (g) host-clock times: a warm coalesced Count over delta rows against
+        the same after compaction, the first Count after a Set, and the
+        write rate through /import.
+
+    Every answer equals the numpy oracle, which takes every write.
+    (f), the fixed dfuse launches, runs with the other timings."""
+    rng = np.random.default_rng(seed + 29)
+    both = {"f": data["f"], "g": data["g"], "k": kdata["k"]}
+    oracle_data = {**data, **kdata}
+    n_shards, words = data["f"][1].shape
+    width = words * 32
+    out: dict = {}
+    doc0 = ingest_doc(http)
+
+    # (a) the writes
+    t0 = time.perf_counter()
+    for f, r in (("f", 1), ("f", 2), ("f", 3), ("g", 2), ("g", 3),
+                 ("k", 1), ("k", 2), ("k", 9), ("k", 10), ("k", 17)):
+        flip_bits(rng, http, both[f], f, r, INGEST_FLIPS)
+    n_cols = data["f"][1].size * 32
+    half, eighth = INGEST_IMPORT_BITS // 2, n_shards // 8 * width
+    pairs = [("f", int(rng.integers(1, 4)), int(c)) for c in
+             rng.integers(0, eighth, size=half)]
+    pairs += [("g", int(rng.integers(2, 4)), int(c)) for c in
+              rng.integers(eighth, 2 * eighth, size=half)]
+    import_bits(http, both, pairs)
+    shard = 7
+    pos = np.sort(np.concatenate([
+        r * width + rng.choice(width, size=100, replace=False)
+        for r in (2, 3)]).astype(np.uint64))
+    keys, words = roaring.positions_to_containers(pos)
+    st, body = http.post(f"/index/i/field/g/import-roaring/{shard}",
+                         roaring.encode(keys, words),
+                         "application/octet-stream")
+    check(st == 200, f"import-roaring g: HTTP {st} {body!r}")
+    for p in pos.tolist():
+        r, off = divmod(int(p), width)
+        data["g"][r][shard, off >> 5] |= np.uint32(1) << np.uint32(off & 31)
+    doc = ingest_doc(http)
+    idx = srv.holder.index("i")
+    pending = {f: len(idx.field(f).view("standard").delta_stats())
+               for f in ("f", "g", "k")}
+    check(doc["pendingBits"] > 0
+          and doc["inlineFlushes"] == doc0["inlineFlushes"]
+          and all(pending.values()),
+          f"/debug/ingest {dict(list(doc.items())[1:10])}, fragments "
+          f"pending by field {pending}")
+    check(doc["config"]["compactInterval"] == INGEST_INTERVAL,
+          f"compact interval {doc['config']['compactInterval']}")
+    out["writes"] = {
+        "pql": 10 * 2 * INGEST_FLIPS, "import_bits": INGEST_IMPORT_BITS,
+        "roaring_bits": int(len(pos)), "ms": (time.perf_counter() - t0) * 1e3,
+        "pending": {k: doc[k] for k in ("fragmentsPending", "pendingBits",
+                                        "pendingRows", "pendingBytes",
+                                        "inlineFlushes", "compactions")},
+        "fragments_pending_by_field": pending,
+        "compact_interval_s": doc["config"]["compactInterval"]}
+    log(f"ingest writes: {out['writes']['pql']} PQL Sets/Clears, "
+        f"{INGEST_IMPORT_BITS} bits through /import, {len(pos)} through "
+        f"/import-roaring; /debug/ingest: {out['writes']['pending']} "
+        f"(compact interval {doc['config']['compactInterval']} s)")
+
+    # (b), (c) coalesced rounds over the delta rows
+    out["k3"] = coalesced_delta_rounds(ck, tape, containers, http, TREES,
+                                       oracle_data, "vm_counts")
+    out["k3_kinds"] = coalesced_delta_rounds(ck, tape, containers, http,
+                                             KINDS_TREES, oracle_data,
+                                             "vm_counts_kinds")
+
+    # (d) the dense dfuse path
+    ck.reset_launch_counts()
+    c0 = containers.counters()
+    tree = ("and", ("f", 1), ("f", 2))
+    res, ms_count = http.query(f"Count({tree_pql(tree)})",
+                               "?nocoalesce=true")
+    check(res == [oracle(tree, oracle_data)], f"dense dfuse Count: {res}")
+    rtree = ("and", ("k", 1), ("k", 2))
+    res, ms_row = http.query(tree_pql(rtree))
+    check(res == [{"columns": row_columns(tree_words(rtree, oracle_data))}],
+          f"dense dfuse Row: {str(res)[:200]}")
+    c1 = containers.counters()
+    k = ck.launch_counts()
+    check(c1["container.fallbacks"] - c0["container.fallbacks"] == 2
+          and c1["container.queries"] == c0["container.queries"]
+          and not any(k.values()),
+          f"dense dfuse route: containers {c1}, launches {k}")
+    out["dense"] = {"count_ms": ms_count, "row_ms": ms_row,
+                    "row_columns": len(res[0]["columns"])}
+    log(f"ingest dense dfuse: Count ?nocoalesce=true {ms_count:.2f} ms, Row "
+        f"root ({len(res[0]['columns'])} columns) {ms_row:.2f} ms, the "
+        f"container engine declined both, no kernel")
+
+    # (e) ?nodelta=1 compacts field f first; K2 again after it
+    pql = f"Count({tree_pql(tree)})"
+    k_runs = []
+    for flags in ("?nodelta=1&nocoalesce=true", "?nocoalesce=true"):
+        ck.reset_launch_counts()
+        res, _ms = http.query(pql, flags)
+        check(res == [oracle(tree, oracle_data)], f"{pql}{flags}: {res}")
+        k_runs.append(ck.launch_counts()["gathered_count_and"])
+        check(not srv.holder.index("i").field("f").view("standard")
+              .delta_stats(), f"field f's deltas pending after {flags}")
+    doc = ingest_doc(http)
+    check(not [e for e in doc["top"] if e["field"] == "f"],
+          f"/debug/ingest lists field f: {doc['top'][:3]}")
+    check(k_runs == [1, 1], f"K2 launches with ?nodelta=1, then without: "
+                            f"{k_runs}")
+    out["nodelta"] = {"k2_launches": k_runs,
+                      "pending_after": {k: doc[k] for k in (
+                          "fragmentsPending", "pendingBits")}}
+    log(f"ingest ?nodelta=1: field f compacted, K2 launches {k_runs}; "
+        f"still pending elsewhere: {out['nodelta']['pending_after']}")
+
+    # (g) host-clock times
+    gtree = ("and", ("g", 2), ("g", 3))
+    gpql = f"Count({tree_pql(gtree)})"
+
+    def warm(label: str, flags: str = "") -> dict:
+        lat = []
+        for _ in range(INGEST_WARM):
+            res, ms = http.query(gpql, flags)
+            lat.append(ms)
+            check(res == [oracle(gtree, oracle_data)], f"{label}: {res}")
+        return spread(lat)
+
+    check(bool(srv.holder.index("i").field("g").view("standard")
+               .delta_stats()), "field g has no pending delta")
+    http.query(gpql)  # stage once
+    times = {"delta_warm_ms": warm("warm over deltas")}
+    res, _ms = http.query(gpql, "?nodelta=1")
+    check(res == [oracle(gtree, oracle_data)], f"{gpql}?nodelta=1: {res}")
+    http.query(gpql)
+    times["compacted_warm_ms"] = warm("warm after compaction")
+    lat = []
+    for _ in range(INGEST_SETS):
+        flip = data["g"][2].reshape(-1)
+        while True:
+            col = int(rng.integers(0, flip.size * 32))
+            if not flip[col >> 5] & (np.uint32(1) << np.uint32(col & 31)):
+                break
+        res, _ms = http.query(f"Set({col}, g=2)")
+        check(res == [True], f"Set({col}, g=2): {res}")
+        flip[col >> 5] |= np.uint32(1) << np.uint32(col & 31)
+        res, ms = http.query(gpql)
+        check(res == [oracle(gtree, oracle_data)], f"after a Set: {res}")
+        lat.append(ms)
+    times["first_after_set_ms"] = spread(lat)
+    rates = []
+    for _ in range(INGEST_BATCHES):
+        pairs = [("f", int(r), int(c)) for r, c in zip(
+            rng.integers(1, 4, size=INGEST_BATCH_BITS),
+            rng.integers(0, n_cols, size=INGEST_BATCH_BITS))]
+        rates.append(INGEST_BATCH_BITS / import_bits(http, both, pairs))
+    times["import_bits_per_s"] = spread(rates)
+    doc = ingest_doc(http)
+    times["after_imports"] = {k: doc[k] for k in (
+        "fragmentsPending", "pendingBits", "compactions", "inlineFlushes")}
+    out["times"] = times
+    log(f"ingest times: warm coalesced {gpql} over pending deltas "
+        f"{fmt(times['delta_warm_ms'])}, after compaction "
+        f"{fmt(times['compacted_warm_ms'])}; the first Count after a Set "
+        f"{fmt(times['first_after_set_ms'])}; /import of "
+        f"{INGEST_BATCH_BITS} bits {fmt(times['import_bits_per_s'], 1, 'bits/s')}"
+        f"; then {times['after_imports']}")
+    tree3 = ("or", ("f", 1), ("f", 2), ("f", 3))
+    res, _ms = http.query(f"Count({tree_pql(tree3)})", "?nocoalesce=true")
+    check(res == [oracle(tree3, oracle_data)], f"after the imports: {res}")
+    out["compaction"] = compact_all()
+    out["compaction"].pop("before")
+    res, _ms = http.query(f"Count({tree_pql(tree3)})")
+    check(res == [oracle(tree3, oracle_data)], f"after compaction: {res}")
+    log(f"ingest: a compactor scan merged {out['compaction']['fragments']} "
+        f"fragments ({out['compaction']['bits']} bits) in "
+        f"{out['compaction']['ms']:.0f} ms; every answer still exact")
     return out
 
 
@@ -2215,13 +2661,16 @@ def phase_k3k_time(torch, ck, tape, flush, card: dict) -> dict:
                       gidx_np, card)
 
 
-def k3k_fixed_launch(torch, tape, bm, kp, dev, seed: int) -> tuple:
+def k3k_fixed_launch(torch, tape, bm, kp, dev, seed: int,
+                     delta: bool = False) -> tuple:
     """K3-kinds' fixed launch made from the seed: FIXED_B of the kinds
     rounds' trees over field k's rows 1 and 2 (arrays at ~0.1 %), 9 and 10
     (16 runs of 512 columns per container) and 17 (a bitmap at ~8 %),
-    drawn as the kinds leg draws them, D = 4096.  Returns the real query
-    count, the pools (bpool, apool, acard, rpool) on ``dev`` and the
-    program (prog, gidx) as numpy."""
+    drawn as the kinds leg draws them, D = 4096; with ``delta`` every leaf
+    delta-fused over bitmap overlays of its own (``overlay_rows``), which
+    join the bitmap pool.  Returns the real query count, the pools
+    (bpool, apool, acard, rpool) on ``dev`` and the program (prog, gidx)
+    as numpy."""
     rng = np.random.default_rng(seed + 53)
     n = FIXED_D
     rows = {("k", 1): array_row(rng, n), ("k", 2): array_row(rng, n),
@@ -2234,10 +2683,17 @@ def k3k_fixed_launch(torch, tape, bm, kp, dev, seed: int) -> tuple:
                      n)
     check(np.array_equal(kinds, want), "the fixed rows picked other kinds")
     slot, bb, ap, ac, rp = kp.split_pools(blocks, kinds)
+    ov_rows: dict = {}
+    if delta:
+        ov, ov_rows = overlay_rows(np.random.default_rng(seed + 57),
+                                   list(rows), n, len(bb))
+        bb = np.concatenate([bb, ov])
     rb, ra = len(bb) + 1, len(ap) + 1  # each pool ends in its empty row
     base = np.where(kinds == 1, 0, np.where(kinds == 2, rb, rb + ra))
     glob = (base + slot).astype(np.int32)
     rows_of = {leaf: glob[i * n:(i + 1) * n] for i, leaf in enumerate(rows)}
+    rows_of.update({k: np.where(v < 0, rb - 1, v).astype(np.int32)
+                    for k, v in ov_rows.items()})
     pad = np.zeros((1, rp.shape[1]), np.uint16)
     pad[:, 0::2] = 1
     pools = kinds_tensors(
@@ -2246,19 +2702,21 @@ def k3k_fixed_launch(torch, tape, bm, kp, dev, seed: int) -> tuple:
         np.concatenate([ac, np.zeros(1, np.int32)]),
         np.concatenate([rp, pad]))
     batch = fixed_program(tape, [KINDS_TREES[i] for i in FIXED_TREES],
-                          rows_of)
-    prog_np, gidx_np = tape.vm_program(batch, rb - 1, 4, 4)
+                          rows_of, delta)
+    prog_np, gidx_np = (vm_batch_program(tape, batch, rb - 1) if delta
+                        else tape.vm_program(batch, rb - 1, 4, 4))
     return len(batch), pools, prog_np, gidx_np
 
 
 def phase_k3k_fixed(torch, ck, tape, bm, kp, dev, seed: int,
-                    card: dict) -> dict:
+                    card: dict, delta: bool = False) -> dict:
     """K3-kinds on its fixed launch (``k3k_fixed_launch``)."""
     live, pools, prog_np, gidx_np = k3k_fixed_launch(torch, tape, bm, kp,
-                                                     dev, seed)
+                                                     dev, seed, delta)
+    what = " under dfuse overlays" if delta else ""
     return k3k_timing(torch, ck, f"a fixed launch (B={FIXED_B}, "
-                      f"D={FIXED_D}, array, run and bitmap rows)", live,
-                      pools, prog_np, gidx_np, card)
+                      f"D={FIXED_D}, array, run and bitmap rows{what})",
+                      live, pools, prog_np, gidx_np, card)
 
 
 def kernel_line(name, source, replaces, launches, err, timing) -> dict:
@@ -2273,8 +2731,8 @@ def kernel_line(name, source, replaces, launches, err, timing) -> dict:
 def run_paths(torch, ck, bm, kp, containers, tape, Server, roaring,
               seed: int, card: dict) -> dict:
     """The server on cuda: the K2 path, the lone query, the coalesced
-    path, the scan path, the BSI path, the kinds leg, then the timings
-    on their own inputs."""
+    path, the scan path, the BSI path, the kinds leg, the ingest phase,
+    then the timings on their own inputs."""
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
     words = SHARD_WIDTH // 32
@@ -2290,7 +2748,11 @@ def run_paths(torch, ck, bm, kp, containers, tape, Server, roaring,
         + f", made in {time.perf_counter() - t0:.1f} s")
 
     tmp = tempfile.mkdtemp(prefix="pilosa_torch_smoke_")
-    srv = Server(tmp, port=0)  # the defaults: cuda, coalescer "auto", kinds
+    # the defaults (cuda, coalescer "auto", kinds, ingest deltas on) but
+    # a compactor that scans once an hour: every merge in this run is a
+    # write's inline flush, a query's (?nodelta=1, a whole-matrix read) or
+    # an explicit scan, so that routes do not depend on timing
+    srv = Server(tmp, port=0, ingest_compact_interval=INGEST_INTERVAL)
     try:
         srv.open()
         check(srv.device.type == "cuda", f"server runs on {srv.device}")
@@ -2298,6 +2760,11 @@ def run_paths(torch, ck, bm, kp, containers, tape, Server, roaring,
               "the coalescer or the VM is off on cuda")
         check(containers.config().kinds, "container kinds are off by "
                                          "default")
+        cfg = ingest_doc(Http(srv.uri))["config"]
+        check(cfg["deltaEnabled"], "ingest delta planes are off by default")
+        log(f"ingest: delta planes on, budget {cfg['deltaBudgetBytes']} "
+            f"bytes, compact threshold {cfg['compactThresholdBits']} bits, "
+            f"compact interval {cfg['compactInterval']} s")
         http = Http(srv.uri)
         check(http.post("/index/i", b'{"options": {"trackExistence": '
                                     b'true}}')[0] == 200, "create index")
@@ -2315,6 +2782,9 @@ def run_paths(torch, ck, bm, kp, containers, tape, Server, roaring,
                                seed)
         out["kinds"] = phase_kinds(ck, tape, containers, srv, http, roaring,
                                    cpr, words, seed)
+        out["ingest"] = phase_ingest(ck, tape, containers, srv, http,
+                                     roaring, data,
+                                     out["kinds"].pop("data"), seed)
         out["k3"] = phase_k3_time(torch, ck, tape,
                                   out["coalesced"].pop("flush"), card)
         out["k2"] = phase_k2_time(torch, ck, bm, out.pop("probe"), card)
@@ -2334,6 +2804,13 @@ def run_paths(torch, ck, bm, kp, containers, tape, Server, roaring,
             [TREES[i] for i in FIXED_TREES])
         out["k3_fixed16"] = phase_k3_fixed(torch, ck, tape, bm, dev, seed,
                                            card, WIDE_SHARDS, TREES)
+        # (f) of the ingest phase: the same fixed launches with every leaf
+        # delta-fused over overlays made from the seed
+        out["k3k_fixed_dfuse"] = phase_k3k_fixed(torch, ck, tape, bm, kp,
+                                                 dev, seed, card, delta=True)
+        out["k3_fixed_dfuse"] = phase_k3_fixed(
+            torch, ck, tape, bm, dev, seed, card, N_SHARDS,
+            [TREES[i] for i in FIXED_TREES], delta=True)
         return out
     finally:
         srv.close()
@@ -2422,6 +2899,7 @@ def main(argv: list[str] | None = None) -> int:
                     "k6_us": out["k6"]["spread_us"],
                     "k1_us": out["k1"]["spread_us"],
                     "kinds": out["kinds"],
+                    "ingest": out["ingest"],
                     "k3_kinds_us": out["k3k"]["spread_us"],
                     "k3_kinds_shape": out["k3k"]["shape"],
                     "k3_kinds_all_slots_bound_ms": out["k3k"]["all_slots_bound_ms"],
@@ -2435,6 +2913,10 @@ def main(argv: list[str] | None = None) -> int:
                             ("vm_counts", "k3_fixed",
                              ("all_slots_bound_ms", "host_plan_us")),
                             ("vm_counts_16", "k3_fixed16",
+                             ("all_slots_bound_ms", "host_plan_us")),
+                            ("vm_counts_dfuse", "k3_fixed_dfuse",
+                             ("all_slots_bound_ms", "host_plan_us")),
+                            ("vm_counts_kinds_dfuse", "k3k_fixed_dfuse",
                              ("all_slots_bound_ms", "host_plan_us")))}}))
     log(json.dumps({"kernels": [
         kernel_line("gathered_count_and",
@@ -2442,18 +2924,24 @@ def main(argv: list[str] | None = None) -> int:
                     "pilosa_tpu/ops/pallas_kernels.py:244",
                     out["launches"]["gathered_count_and"],
                     max(k2_err, out["k2"]["max_abs_err"]), out["k2"]),
+        # K3 and K3-kinds: launches on their own paths plus the ingest
+        # phase's dfuse launches
         kernel_line("vm_counts", "pilosa_tpu_torch/ops/csrc/vm_counts.cu",
                     "pilosa_tpu/ops/pallas_kernels.py:454",
-                    out["coalesced"]["k3_launches"],
+                    out["coalesced"]["k3_launches"]
+                    + out["ingest"]["k3"]["launches"],
                     max(k3_err, out["k3"]["max_abs_err"],
                         out["k3_fixed"]["max_abs_err"],
-                        out["k3_fixed16"]["max_abs_err"]), out["k3"]),
+                        out["k3_fixed16"]["max_abs_err"],
+                        out["k3_fixed_dfuse"]["max_abs_err"]), out["k3"]),
         kernel_line("vm_counts_kinds",
                     "pilosa_tpu_torch/ops/csrc/vm_counts_kinds.cu",
                     "pilosa_tpu/ops/pallas_kernels.py:489",
-                    out["kinds"]["launches"]["vm_counts_kinds"],
+                    out["kinds"]["launches"]["vm_counts_kinds"]
+                    + out["ingest"]["k3_kinds"]["launches"],
                     max(k3k_err, out["k3k"]["max_abs_err"],
-                        out["k3k_fixed"]["max_abs_err"]), out["k3k"]),
+                        out["k3k_fixed"]["max_abs_err"],
+                        out["k3k_fixed_dfuse"]["max_abs_err"]), out["k3k"]),
         kernel_line("row_counts_masked",
                     "pilosa_tpu_torch/ops/csrc/row_counts_masked.cu",
                     "pilosa_tpu/ops/pallas_kernels.py:145",

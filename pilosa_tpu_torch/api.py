@@ -38,10 +38,12 @@ class API:
 
     def query(self, index: str, pql, shards=None,
               exclude_columns: bool = False, containers: bool = True,
-              coalesce: bool = True, vm: bool = True) -> list:
+              coalesce: bool = True, vm: bool = True,
+              delta: bool = True) -> list:
         opt = ExecOptions(exclude_columns=exclude_columns,
                           shards=None if shards is None else list(shards),
-                          coalesce=coalesce, containers=containers, vm=vm)
+                          coalesce=coalesce, containers=containers, vm=vm,
+                          delta=delta)
         return self.executor.execute(index, pql, opt=opt)
 
     def index(self, name: str):

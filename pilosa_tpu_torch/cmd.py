@@ -2,10 +2,12 @@
 
     python -m pilosa_tpu_torch server -d DIR -b HOST:PORT [--device cpu]
         [--no-ragged] [--ragged-max-tape N] [--ragged-max-leaves N]
+        [--no-ingest-delta] [--ingest-delta-budget-bytes N]
+        [--ingest-compact-threshold-bits N] [--ingest-compact-interval S]
 
 Serves the data directory over HTTP until SIGINT or SIGTERM.  The node
-runs on ``cuda`` unless ``--device cpu`` is given.  The ragged flags are
-the reference's (pilosa_tpu/cmd.py:72-85).
+runs on ``cuda`` unless ``--device cpu`` is given.  The ragged and ingest
+flags are the reference's (pilosa_tpu/cmd.py:72-85, 133-150).
 """
 
 from __future__ import annotations
@@ -26,6 +28,11 @@ def _serve(args) -> int:
         ragged["ragged_max_leaves"] = args.ragged_max_leaves
     srv = Server(args.data_dir, host=host or "127.0.0.1", port=int(port),
                  device=args.device, ragged_enabled=not args.no_ragged,
+                 ingest_delta_enabled=not args.no_ingest_delta,
+                 ingest_delta_budget_bytes=args.ingest_delta_budget_bytes,
+                 ingest_compact_threshold_bits=(
+                     args.ingest_compact_threshold_bits),
+                 ingest_compact_interval=args.ingest_compact_interval,
                  **ragged)
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
@@ -61,5 +68,18 @@ def main(argv: list[str] | None = None) -> int:
     ps.add_argument("--ragged-max-leaves", type=int,
                     help="most leaf operands a query may stage into a "
                          "ragged bucket")
+    ps.add_argument("--no-ingest-delta", action="store_true",
+                    help="disable streaming-ingest delta planes ([ingest] "
+                         "delta-enabled=false): every write merges into "
+                         "the base rows at once")
+    ps.add_argument("--ingest-delta-budget-bytes", type=int,
+                    help="process-wide bound on pending delta bytes; past "
+                         "it a writer flushes its own fragment inline")
+    ps.add_argument("--ingest-compact-threshold-bits", type=int,
+                    help="pending bit positions at which a fragment's "
+                         "delta merges on the next compactor scan")
+    ps.add_argument("--ingest-compact-interval", type=float,
+                    help="compactor scan period in seconds, also the age "
+                         "bound of a small delta")
     args = p.parse_args(argv)
     return _serve(args)

@@ -13,10 +13,23 @@ set that the fused executor reads:
   ``n`` the all-zero absent container, or, with [containers] kinds on
   and any array or run container in the row, three compact kind pools.
 
-Both are cached in one plain per-field dict keyed on the fragments'
-``(_uid, _gen)``; any write to a fragment makes its entries miss.  The
-TopN scan's operand, ``device_matrix_stack`` (every row of a shard set
-in one matrix), has a cache of its own with the reference's size cap.
+Both hold BASE content and are cached in one plain per-field dict keyed
+on the fragments' ``(_uid, _gen)`` (``_frag_base_gen``): a write that
+lands in a fragment's delta plane (pilosa_tpu_torch.ingest) leaves them
+warm, and only a base write or a compaction makes them miss.  The pending
+overlays of a row have forms of their own (pilosa_tpu/models/field.py:
+678-825), cached per (row, shards) on the fragments' ``(_uid, row_seq)``
+so that a write to another row keeps them valid:
+
+- ``device_delta_stacks`` -- the (set, clear) dense stacks, operands of
+  the dense ``dfuse`` node ``(base & ~clear) | set``;
+- ``device_delta_container_leaves`` -- the same as two all-bitmap
+  container leaves, operands of the VM's ``dfuse`` tapes.
+
+The TopN scan's operand, ``device_matrix_stack`` (every row of a shard
+set in one matrix), has a cache of its own with the reference's size cap;
+its fragments merge their deltas first, and it keys on the effective
+``(_uid, _gen, _delta_seq)`` (``_frag_gen``).
 
 ``int`` fields (pilosa_tpu/models/field.py:1279-1562, 1700-1780) keep
 their values as bit planes in the BSI view ``bsig_<field>``: writes
@@ -112,8 +125,46 @@ def atomic_write_json(path: str, obj) -> None:
 
 
 def _frag_gen(fr) -> tuple | int:
-    """Cache token of one fragment slot: (uid, gen), 0 when absent."""
+    """Token of one fragment slot's EFFECTIVE content: (uid, gen,
+    delta_seq), 0 when absent (pilosa_tpu/models/field.py:48-58)."""
+    return 0 if fr is None else (fr._uid, fr._gen, fr._delta_seq)
+
+
+def _frag_base_gen(fr) -> tuple | int:
+    """Token of one fragment slot's BASE content: (uid, gen), blind to
+    the delta sequence, so that streaming writes leave base forms warm
+    (pilosa_tpu/models/field.py:61-67)."""
     return 0 if fr is None else (fr._uid, fr._gen)
+
+
+def _delta_tokens(frags: list, row_id: int) -> tuple | None:
+    """The per-fragment ``(uid, row_seq)`` tokens of one row's pending
+    overlays, or None when no fragment has one for the row."""
+    toks = tuple(0 if fr is None else (fr._uid, fr._delta_row_seq(row_id))
+                 for fr in frags)
+    if not any(t and t[1] for t in toks):
+        return None
+    return toks
+
+
+def _delta_words(frags: list, row_id: int) -> tuple[list, list]:
+    """Copies of each fragment's (set, clear) overlay words of one row,
+    None where it has none, taken under the fragment lock: later delta
+    writes mutate the plane's arrays in place."""
+    sets, clears = [], []
+    for fr in frags:
+        s = c = None
+        if fr is not None:
+            with fr._lock:
+                d = fr._delta
+                if d is not None and d.row_touched(row_id):
+                    s = d.sets.get(row_id)
+                    s = None if s is None else s.copy()
+                    c = d.clears.get(row_id)
+                    c = None if c is None else c.copy()
+        sets.append(s)
+        clears.append(c)
+    return sets, clears
 
 
 @dataclass
@@ -352,11 +403,13 @@ class Field:
 
     def device_row_stack(self, row_id: int, shards: tuple[int, ...]
                          ) -> torch.Tensor:
-        """One standard-view row across ``shards`` as an int32
+        """One standard-view BASE row across ``shards`` as an int32
         [n_shards, words] tensor on the field's device; missing
-        fragments contribute zero rows."""
+        fragments contribute zero rows.  A pending delta does not
+        invalidate it: the executor fuses the overlay on top
+        (``device_delta_stacks``)."""
         frags = [self.fragment(s) for s in shards]
-        gens = tuple(_frag_gen(fr) for fr in frags)
+        gens = tuple(_frag_base_gen(fr) for fr in frags)
 
         def build() -> torch.Tensor:
             stack = np.zeros((len(shards), bm.n_words(SHARD_WIDTH)),
@@ -386,7 +439,7 @@ class Field:
         cfg = ct.config()
         kinds_on = bool(cfg.kinds)
         gens = (cfg.threshold, kinds_on, cfg.array_max, cfg.run_cap,
-                *(_frag_gen(fr) for fr in frags))
+                *(_frag_base_gen(fr) for fr in frags))
 
         def build():
             entries: list = []
@@ -464,6 +517,88 @@ class Field:
             acard=torch.from_numpy(acard).to(dev),
             rpool=torch.from_numpy(rpool.view(np.int16)).to(dev),
             an=an, rn=rn)
+
+    def device_delta_stacks(self, row_id: int, shards: tuple[int, ...]):
+        """The pending overlays of one standard-view row across
+        ``shards`` as a pair of int32 [n_shards, words] tensors ``(set,
+        clear)``, the operands of ops/expr's ``dfuse`` node, or None when
+        no fragment has an overlay for the row
+        (pilosa_tpu/models/field.py:678-737).  The executor stages them
+        BEFORE the base stack: re-applying an overlay that a concurrent
+        compaction has merged gives the same words."""
+        frags = [self.fragment(s) for s in shards]
+        toks = _delta_tokens(frags, row_id)
+        if toks is None:
+            return None
+
+        def build():
+            n_words = bm.n_words(SHARD_WIDTH)
+            sets, clears = _delta_words(frags, row_id)
+            out = []
+            for words in (sets, clears):
+                stack = np.zeros((len(shards), n_words), dtype=np.uint32)
+                for i, w in enumerate(words):
+                    if w is not None:
+                        stack[i] = w
+                out.append(bm.to_tensor(stack, self.device))
+            return tuple(out)
+
+        return self._cached(("delta", row_id, shards), toks, build)
+
+    def device_delta_container_leaves(self, row_id: int,
+                                      shards: tuple[int, ...]):
+        """The pending overlays of one standard-view row across
+        ``shards`` as a pair of all-bitmap ContainerLeaf ``(set, clear)``
+        -- each shard's non-empty overlay containers pooled -- the
+        operands of the VM's ``dfuse`` tapes, or None when no fragment
+        has an overlay for the row (pilosa_tpu/models/field.py:739-825).
+        Cached like ``device_delta_stacks``."""
+        frags = [self.fragment(s) for s in shards]
+        toks = _delta_tokens(frags, row_id)
+        if toks is None:
+            return None
+        cpr = SHARD_WIDTH // ct.CONTAINER_BITS
+
+        def build():
+            pair = []
+            for per_shard in _delta_words(frags, row_id):
+                entries: list = []
+                starts: list[int] = []
+                blocks_list: list[np.ndarray] = []
+                n = 0
+                for words in per_shard:
+                    starts.append(n)
+                    if words is None:
+                        entries.append(np.empty(0, dtype=np.int64))
+                        continue
+                    blocks = words.reshape(cpr, ct.CWORDS)
+                    keys = np.flatnonzero(blocks.any(axis=1)).astype(
+                        np.int64)
+                    entries.append(keys)
+                    if len(keys):
+                        blocks_list.append(blocks[keys])
+                        n += len(keys)
+                pool = ct.build_pool(blocks_list, n)
+                pair.append(ct.ContainerLeaf(
+                    shards, entries, starts, bm.to_tensor(pool, self.device),
+                    n, pool.nbytes))
+            return tuple(pair)
+
+        return self._cached(("dcont", row_id, shards), toks, build)
+
+    def flush_deltas(self, shards=None) -> int:
+        """Merge the pending deltas of this field's fragments (of
+        ``shards``, or all) into their base rows: the ``?nodelta=1``
+        escape (pilosa_tpu/models/field.py:1064).  Returns the bit
+        positions merged."""
+        merged = 0
+        for view in list(self.views.values()):
+            frags = (list(view.fragments.values()) if shards is None
+                     else [view.fragment(s) for s in shards])
+            for frag in frags:
+                if frag is not None:
+                    merged += frag.flush_delta()
+        return merged
 
     #: largest matrix stack kept in the cache (bytes); a larger one is
     #: rebuilt per query (pilosa_tpu/models/field.py:1150)

@@ -23,10 +23,21 @@ generation, and ``sum``/``min``/``max``/``range_op``/``range_between``
 evaluate over it (ops/bsi.py: K6 for every compare, K4 for Sum's plane
 counts, K1 for a filtered Sum's count).
 
-Left out: delta planes, time views and the background snapshot queue
-(snapshots here run inline, in one phase).  Device copies of rows across
-shards are built by the owning Field, keyed on this fragment's ``(_uid,
-_gen)``.
+Streaming ingest (pilosa_tpu/models/fragment.py:505-630, 675-870,
+1099-1140): with [ingest] deltas on (the default; pilosa_tpu_torch.ingest)
+``set_bit``/``clear_bit``, ``import_positions`` and roaring payloads of at
+most ``_DELTA_MAX_ROARING_BITS`` bits land in the fragment's delta plane
+(ingest/deltaplane.py) with the same WAL records as the base path, bump
+``_delta_seq`` instead of ``_gen`` and register with the compactor.
+``flush_delta`` merges the plane into the base rows (sets, then clears)
+and bumps ``_gen``.  ``row``/``row_ids``/``bit`` read effective content;
+every whole-matrix reader (``_stacked``: snapshot, ``device_matrix``, the
+TopN and Rows scans) merges first.  BSI views never take the delta path.
+
+Left out: time views and the background snapshot queue (snapshots here
+run inline, in one phase).  Device copies of rows across shards are built
+by the owning Field, keyed on this fragment's ``(_uid, _gen)`` (base
+content) or ``(_uid, _gen, _delta_seq)`` (effective content).
 """
 
 from __future__ import annotations
@@ -40,6 +51,9 @@ import threading
 import numpy as np
 import torch
 
+from pilosa_tpu_torch import ingest
+from pilosa_tpu_torch.ingest import compactor
+from pilosa_tpu_torch.ingest.deltaplane import DeltaPlane
 from pilosa_tpu_torch.models.cache import TopNCache
 from pilosa_tpu_torch.ops import bitmap as bm
 from pilosa_tpu_torch.ops import bsi as bsi_ops
@@ -84,9 +98,14 @@ class Fragment:
         self.n_words = bm.n_words(SHARD_WIDTH)
 
         self._rows: dict[int, np.ndarray] = {}
-        # _gen bumps on every mutation; _uid tells a re-created fragment
-        # from the one it replaced.  Device caches key on (_uid, _gen).
+        # _gen bumps on every base mutation and compaction; _uid tells a
+        # re-created fragment from the one it replaced.  Device caches of
+        # base content key on (_uid, _gen).
         self._gen = 0
+        # the pending delta plane, and the delta sequence: bumped on every
+        # delta-landing write, never reset (compaction leaves it alone)
+        self._delta: DeltaPlane | None = None
+        self._delta_seq = 0
         self._uid = next(Fragment._UID)
         self._closed = False
         self._lock = threading.RLock()
@@ -251,6 +270,103 @@ class Fragment:
             if self._wal is not None:
                 self._wal.close()
                 self._wal = None
+            # the pending bits are in the WAL (a reopen replays them into
+            # the base rows): only the compactor registration goes
+            if self._delta is not None:
+                compactor.compactor().forget(self)
+                self._delta = None
+
+    # ------------------------------------------------ streaming delta plane
+
+    #: BSI views never take the delta path: their reads are whole plane
+    #: stacks (pilosa_tpu/models/fragment.py:509-524)
+    _BSI_VIEW_PREFIX = "bsig_"
+
+    def _delta_eligible(self) -> bool:
+        """Whether writes land in the delta plane: [ingest] deltas on and
+        not a BSI view (the port has no mutex fragments)."""
+        return (ingest.config().delta_enabled
+                and not self.view.startswith(self._BSI_VIEW_PREFIX))
+
+    def _delta_or_new(self) -> DeltaPlane:
+        d = self._delta
+        if d is None:
+            d = self._delta = DeltaPlane(self.n_words, self.width)
+        return d
+
+    def _delta_after_write_locked(self) -> None:
+        """Register with the compactor; past the process-wide pending
+        budget the writer merges its own fragment inline."""
+        if compactor.compactor().note_delta(self):
+            self._flush_delta_locked(inline=True)
+
+    def _delta_row_seq(self, row: int) -> int:
+        """Per-row delta token, 0 without a pending overlay: the field's
+        delta forms key on (uid, row_seq), so a write to another row
+        leaves them valid."""
+        d = self._delta
+        return 0 if d is None else d.row_seq.get(row, 0)
+
+    def delta_stats(self) -> dict | None:
+        with self._lock:
+            d = self._delta
+            if d is None or d.empty():
+                return None
+            return d.stats()
+
+    def flush_delta(self) -> int:
+        """Merge the pending delta plane into the base rows (compaction):
+        bumps ``_gen``, leaves ``_delta_seq`` alone, appends nothing to
+        the WAL.  Returns the pending bit positions merged."""
+        with self._lock:
+            return self._flush_delta_locked()
+
+    def _flush_delta_locked(self, inline: bool = False) -> int:
+        d = self._delta
+        if d is None or d.empty():
+            self._delta = None
+            return 0
+        # sets first, then clears, as _apply_bulk orders them
+        for row, words in d.sets.items():
+            arr = self._row_array(row, create=True)
+            np.bitwise_or(arr, words, out=arr)
+        for row, words in d.clears.items():
+            arr = self._rows.get(row)
+            if arr is not None:
+                np.bitwise_and(arr, ~words, out=arr)
+        bits = d.bits
+        self._delta = None
+        self._gen += 1
+        compactor.compactor().note_flushed(self, bits, inline=inline)
+        return bits
+
+    def _bit_off_locked(self, row: int, off: int) -> bool:
+        """The effective bit (base overlaid with the delta) at one offset;
+        the caller holds the lock."""
+        d = self._delta
+        if d is not None:
+            ov = d.override(row, off)
+            if ov is not None:
+                return ov
+        arr = self._rows.get(row)
+        if arr is None:
+            return False
+        return bool((arr[off // bm.WORD_BITS] >> np.uint32(
+            off % bm.WORD_BITS)) & np.uint32(1))
+
+    def _delta_set_bit(self, row: int, off: int, clear: bool) -> bool:
+        """A single-bit write landing in the delta plane (the caller holds
+        the lock): the base path's WAL record and op count."""
+        if self._bit_off_locked(row, off) == (not clear):
+            return False  # a no-op: no WAL record, no sequence bump
+        self._wal_append(_WAL_REC.pack(_WAL_CLEAR if clear else _WAL_SET,
+                                       row, off))
+        self._op_n += 1
+        self._delta_seq += 1
+        self._delta_or_new().add_bit(row, off, clear, self._delta_seq)
+        self._delta_after_write_locked()
+        self._maybe_snapshot()
+        return True
 
     # ------------------------------------------------------- host mutation
 
@@ -292,6 +408,11 @@ class Fragment:
     def set_bit(self, row: int, col: int) -> bool:
         with self._lock:
             off = self._offset(col)
+            if self._delta_eligible():
+                return self._delta_set_bit(row, off, clear=False)
+            # the base path merges a pending delta first, so that the
+            # in-memory order of writes is the WAL's
+            self._flush_delta_locked()
             if not self._apply_set(row, off):
                 return False
             self._wal_append(_WAL_REC.pack(_WAL_SET, row, off))
@@ -303,6 +424,9 @@ class Fragment:
     def clear_bit(self, row: int, col: int) -> bool:
         with self._lock:
             off = self._offset(col)
+            if self._delta_eligible():
+                return self._delta_set_bit(row, off, clear=True)
+            self._flush_delta_locked()
             if not self._apply_clear(row, off):
                 return False
             self._wal_append(_WAL_REC.pack(_WAL_CLEAR, row, off))
@@ -319,10 +443,21 @@ class Fragment:
             clears = np.unique(np.asarray(clear_pos, dtype=np.uint64))
             if len(sets) == 0 and len(clears) == 0:
                 return
+            record = (_WAL_BULK_HDR.pack(_WAL_BULK, len(sets), len(clears))
+                      + sets.tobytes() + clears.tobytes())
+            if self._delta_eligible():
+                self._wal_append(record)
+                self._op_n += len(sets) + len(clears)
+                self._delta_seq += 1
+                d = self._delta_or_new()
+                d.add_positions(sets, False, self._delta_seq)
+                d.add_positions(clears, True, self._delta_seq)
+                self._delta_after_write_locked()
+                self._maybe_snapshot()
+                return
+            self._flush_delta_locked()
             self._apply_bulk(sets, clears)
-            self._wal_append(
-                _WAL_BULK_HDR.pack(_WAL_BULK, len(sets), len(clears))
-                + sets.tobytes() + clears.tobytes())
+            self._wal_append(record)
             self._op_n += len(sets) + len(clears)
             self._gen += 1
             self._maybe_snapshot()
@@ -331,15 +466,31 @@ class Fragment:
 
     def import_roaring(self, data: bytes, clear: bool = False) -> None:
         """Merge a serialized roaring bitmap in fragment position space;
-        the whole payload is logged as one WAL roaring record."""
+        the whole payload is logged as one WAL roaring record.  With
+        deltas on, a payload of at most ``_DELTA_MAX_ROARING_BITS`` bits
+        lands in the delta plane as positions."""
         with self._lock:
             if not data:
                 return
+            record = _WAL_ROARING_HDR.pack(_WAL_ROARING, len(data),
+                                           1 if clear else 0) + data
+            if self._delta_eligible():
+                pos = self._delta_roaring_positions(data)
+                if pos is not None:
+                    if len(pos) == 0:
+                        return  # an empty but valid payload: a no-op
+                    self._wal_append(record)
+                    self._op_n += len(pos)
+                    self._delta_seq += 1
+                    self._delta_or_new().add_positions(pos, clear,
+                                                       self._delta_seq)
+                    self._delta_after_write_locked()
+                    self._maybe_snapshot()
+                    return
+            self._flush_delta_locked()
             changed = self._merge_roaring(data, clear)
             if changed:
-                self._wal_append(
-                    _WAL_ROARING_HDR.pack(_WAL_ROARING, len(data),
-                                          1 if clear else 0) + data)
+                self._wal_append(record)
                 self._op_n += changed
                 self._gen += 1
                 self._maybe_snapshot()
@@ -348,6 +499,25 @@ class Fragment:
     #: (pilosa_tpu/models/fragment.py:862)
     _SPARSE_BITS_PER_CONTAINER = 512
     _SPARSE_MAX_BITS = 1 << 25
+
+    #: roaring payloads of more bits skip the delta plane and merge into
+    #: the base directly (pilosa_tpu/models/fragment.py:866-870)
+    _DELTA_MAX_ROARING_BITS = 1 << 22
+
+    def _delta_roaring_positions(self, data: bytes):
+        """A roaring payload's absolute bit positions for the delta
+        plane, or None when it is too large, or malformed in a way the
+        dense path owns reporting."""
+        stats = rcodec.payload_stats(data)
+        if stats is None:
+            return None
+        if stats[1] > self._DELTA_MAX_ROARING_BITS:
+            return None
+        try:
+            return rcodec.decode_positions(
+                data, max_positions=2 * self._DELTA_MAX_ROARING_BITS)
+        except rcodec.RoaringError:
+            return None
 
     def _merge_roaring(self, data: bytes, clear: bool) -> int:
         """In-memory merge of a roaring payload; returns the number of
@@ -435,29 +605,42 @@ class Fragment:
 
     def bit(self, row: int, col: int) -> bool:
         with self._lock:
-            off = self._offset(col)
-            arr = self._rows.get(row)
-            if arr is None:
-                return False
-            return bool((arr[off // bm.WORD_BITS] >> np.uint32(
-                off % bm.WORD_BITS)) & np.uint32(1))
+            return self._bit_off_locked(row, self._offset(col))
 
     def row(self, row: int) -> np.ndarray:
-        """Packed uint32 words for one row (copy)."""
+        """Packed uint32 EFFECTIVE words for one row (a copy), read under
+        the lock: the compactor may move a delta-only row into the base
+        at any moment, and an unlocked base-then-delta read could see
+        neither half."""
         with self._lock:
             arr = self._rows.get(row)
-            if arr is None:
-                return np.zeros(self.n_words, dtype=np.uint32)
-            return arr.copy()
+            out = (np.zeros(self.n_words, dtype=np.uint32) if arr is None
+                   else arr.copy())
+            d = self._delta
+            if d is not None and d.row_touched(row):
+                d.apply_row(row, out)
+            return out
 
     def row_ids(self) -> list[int]:
+        """The effective non-empty rows, under the lock (the compactor
+        mutates ``_rows`` and ``_delta``)."""
         with self._lock:
-            return sorted(r for r, a in self._rows.items() if a.any())
+            d = self._delta
+            if d is None or d.empty():
+                return sorted(r for r, a in self._rows.items() if a.any())
+            touched = set(d.touched_rows())
+            out = [r for r, a in self._rows.items()
+                   if r not in touched and a.any()]
+            out.extend(r for r in touched
+                       if d.row_any(r, self._rows.get(r)))
+            return sorted(out)
 
     def _stacked(self) -> tuple[np.ndarray, np.ndarray]:
         """(row_ids int64[R], matrix uint32[R, words]) of the non-empty
-        rows, cached per generation."""
+        rows, cached per generation.  Merges a pending delta first, so
+        every whole-matrix reader sees effective content."""
         with self._lock:
+            self._flush_delta_locked()
             if (self._stack_cache is not None
                     and self._stack_cache[0] == self._gen):
                 return self._stack_cache[1], self._stack_cache[2]
@@ -470,11 +653,12 @@ class Fragment:
             return ids, matrix
 
     def row_containers(self, row: int):
-        """One row in compressed container-directory form: ``(keys
+        """One BASE row in compressed container-directory form: ``(keys
         int64[n], blocks uint32[n, 2048], bits)`` holding only its
         non-empty 2^16-bit containers, or None when the row's fill ratio
         (bits / width) exceeds the [containers] threshold.  Cached per
-        generation (pilosa_tpu/models/fragment.py:1320-1366)."""
+        generation; a pending delta does not invalidate it
+        (pilosa_tpu/models/fragment.py:1320-1366)."""
         with self._lock:
             hit = self._container_cache.get(row)
             if hit is not None and hit[0] == self._gen:
@@ -521,9 +705,11 @@ class Fragment:
     def cached_row_counts(self, n: int = 0) -> dict[int, int] | None:
         """Exact {row: count} from the TopN cache when valid for the
         current generation and sufficient to answer TopN(n) exactly
-        (n=0 demands a complete cache); else None
-        (pilosa_tpu/models/fragment.py:1206)."""
+        (n=0 demands a complete cache); else None, also while a delta is
+        pending (pilosa_tpu/models/fragment.py:1206)."""
         with self._lock:
+            if self._delta is not None and not self._delta.empty():
+                return None
             counts = self.topn_cache.get(self._gen)
             if counts is None or not self.topn_cache.exact_for(n):
                 return None
@@ -541,8 +727,10 @@ class Fragment:
 
     def device_matrix(self) -> tuple[np.ndarray, torch.Tensor]:
         """(row_ids int64[R], int32 [R, words] tensor on the fragment's
-        device) of the non-empty rows, cached per generation."""
+        device) of the non-empty effective rows, cached per generation: a
+        pending delta merges first."""
         with self._lock:
+            self._flush_delta_locked()
             hit = self._matrix_cache
             if hit is not None and hit[0] == self._gen:
                 return hit[1], hit[2]

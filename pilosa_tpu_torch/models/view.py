@@ -94,6 +94,23 @@ class View:
         frag = self.fragment(col // SHARD_WIDTH)
         return (0, False) if frag is None else frag.value(col, depth)
 
+    # -- streaming ingest (pilosa_tpu/models/view.py:145-160) ---------------
+
+    def flush_deltas(self) -> int:
+        """Merge every fragment's pending delta plane into its base rows;
+        returns the bit positions merged."""
+        return sum(frag.flush_delta()
+                   for frag in list(self.fragments.values()))
+
+    def delta_stats(self) -> dict:
+        """{shard: delta stats} of the fragments with a pending delta."""
+        out = {}
+        for shard, frag in list(self.fragments.items()):
+            s = frag.delta_stats()
+            if s is not None:
+                out[shard] = s
+        return out
+
     def close(self) -> None:
         for frag in self.fragments.values():
             frag.close()

@@ -27,13 +27,17 @@ Port of pilosa_tpu/ops/containers.py, with its array and run kinds
 - **Fallback** -- a leaf row whose fill ratio (bits / shard width)
   exceeds the ``[containers]`` threshold in any shard routes the whole
   query to the dense path, as does ``?nocontainers=1`` or
-  ``configure(enabled=False)``.
+  ``configure(enabled=False)``.  So does a pending ingest delta on a
+  queried row (the pools hold base content); ``?nodelta=1`` compacts the
+  rows' deltas first.
 - **Bitmap VM** -- ``stage_vm`` stages a coalesced Count the same way
   but keeps only each leaf's local gather rows; at flush the coalescer
   concatenates the bucket's leaves into one ``megapool`` -- a plain pool
   for all-bitmap leaves, run by K3, or a ``MegaPools`` bundle of the
   three kind pools, run by K3-kinds, which decodes the compact rows as
-  it gathers them (ops/tape.execute_vm).
+  it gathers them (ops/tape.execute_vm).  A row with a pending ingest
+  delta stays compressed there: its overlay stages as two more all-bitmap
+  leaves under a ``dfuse`` node, ``(base & ~clear) | set``.
 
 Configuration and counters are process-wide, as in the reference.
 """
@@ -291,6 +295,11 @@ def _domain(shape: tuple, keysets: list) -> np.ndarray:
         return out
     if kind in ("andnot", "not"):
         return _domain(shape[1], keysets)
+    if kind == "dfuse":
+        # (child & ~clear) | set: a result bit can only live in the
+        # child's or the set overlay's containers
+        return np.union1d(_domain(shape[1], keysets),
+                          _domain(shape[2], keysets))
     raise ValueError(f"container-ineligible node: {kind!r}")
 
 
@@ -614,6 +623,20 @@ def plan_fused(idx: Any, call: Any, shards: tuple, opt: Any = None,
         return None
     if not counts and shape[0] == "leaf":
         return None
+    use_delta = opt is None or getattr(opt, "delta", True)
+    for f, row_id in leaf_descs:
+        if not use_delta:
+            # ?nodelta=1: compact up front, then a pure base read
+            f.flush_deltas(shards)
+            continue
+        for s in shards:
+            fr = f.fragment(s)
+            if fr is not None and fr._delta_row_seq(row_id):
+                # a pending overlay on a queried row: the pools hold base
+                # content, so the dense path fuses it (pilosa_tpu/ops/
+                # containers.py:1106-1124)
+                bump("container.fallbacks")
+                return None
     leaves = []
     for f, row_id in leaf_descs:
         leaf = f.device_container_leaf(row_id, shards)
@@ -657,15 +680,21 @@ class VMStage:
         self.pad = pad
 
 
-def stage_vm(idx: Any, call: Any, shards: tuple,
+def stage_vm(idx: Any, call: Any, shards: tuple, use_delta: bool = True,
              max_tape: int | None = None, max_leaves: int | None = None,
              min_domain: int = VM_MIN_DOMAIN,
              max_prefetch: int | None = VM_MAX_PREFETCH) -> VMStage | None:
     """Stage one fused Count read for the bitmap VM, or None to route the
     dense engines -- all-or-nothing per query, like ``plan_fused``
-    (pilosa_tpu/ops/containers.py:703, without its delta branch: the
-    port has no delta planes).  A leaf whose directory holds a kind byte
-    above 3 declines as ``kind_unsupported``.  Every decline bumps its
+    (pilosa_tpu/ops/containers.py:703-825), except that a pending ingest
+    delta does not decline: a row's overlay stages as two more
+    all-bitmap leaves (``Field.device_delta_container_leaves``) under a
+    ``dfuse`` node, ``(base & ~clear) | set``, two tape instructions.
+    The delta leaves are read BEFORE the base leaf, so a concurrent
+    compaction can only make the overlay apply twice, which is
+    idempotent.  ``use_delta=False`` (``?nodelta=1``) compacts each row's
+    deltas first.  A leaf whose directory holds a kind byte above 3
+    declines as ``kind_unsupported``.  Every decline bumps its
     ``vm.fallbacks.*`` reason."""
     from pilosa_tpu_torch.ops import tape as _tp
 
@@ -677,8 +706,14 @@ def stage_vm(idx: Any, call: Any, shards: tuple,
     if shape is None or not leaf_descs:
         _tp.bump("vm.fallbacks.ineligible_leaf")
         return None
+    nodemap: dict = {}
     leaves: list[ContainerLeaf] = []
-    for f, row_id in leaf_descs:
+    for i, (f, row_id) in enumerate(leaf_descs):
+        pair = None
+        if use_delta:
+            pair = f.device_delta_container_leaves(row_id, shards)
+        else:
+            f.flush_deltas(shards)
         leaf = f.device_container_leaf(row_id, shards)
         if leaf.dense_slots():
             bump("container.fallbacks")
@@ -690,7 +725,19 @@ def stage_vm(idx: Any, call: Any, shards: tuple,
             # carry later kinds)
             _tp.bump("vm.fallbacks.kind_unsupported")
             return None
+        nodemap[i] = ("leaf", len(leaves))
         leaves.append(leaf)
+        if pair is not None:
+            nodemap[i] = ("dfuse", nodemap[i], ("leaf", len(leaves)),
+                          ("leaf", len(leaves) + 1))
+            leaves.extend(pair)
+
+    def subst(node: tuple) -> tuple:
+        if node[0] == "leaf":
+            return nodemap[node[1]]
+        return (node[0],) + tuple(subst(c) for c in node[1:])
+
+    shape = subst(shape)
     if max_leaves is not None and len(leaves) > max_leaves:
         _tp.bump("tape.oversize_fallbacks")
         _tp.bump("vm.fallbacks.oversize")

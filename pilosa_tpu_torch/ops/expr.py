@@ -6,8 +6,12 @@ tuple whose leaves are slot indices into the operand tuple:
     ("leaf", i)                           operand slot i
     ("and"|"or"|"xor"|"andnot", c, ...)   left-fold over children
     ("not", ("leaf", i_exist), child)     exist & ~child
+    ("dfuse", child, set_c, clear_c)      (child & ~clear) | set
 
-(``shift`` and the ingest ``dfuse`` node are not part of the port yet.)
+``dfuse`` is the streaming-ingest delta fusion (pilosa_tpu_torch.ingest):
+the child is a base row stack, the set and clear leaves a fragment delta
+plane's overlays (pilosa_tpu/ops/expr.py:20-25).  (``shift`` is not part
+of the port yet.)
 
 ``evaluate(shape, leaves)`` returns the int32 word stack,
 ``evaluate(shape, leaves, counts=True)`` the int32 per-row popcounts
@@ -51,6 +55,12 @@ def _validate(shape: tuple, n_leaves: int) -> None:
         _validate(shape[1], n_leaves)
         _validate(shape[2], n_leaves)
         return
+    if kind == "dfuse":
+        if len(shape) != 4:
+            raise ValueError("dfuse needs (child, set, clear)")
+        for c in shape[1:]:
+            _validate(c, n_leaves)
+        return
     raise ValueError(f"unknown expression node: {kind!r}")
 
 
@@ -79,6 +89,9 @@ def _build(shape: tuple) -> Callable[[tuple], torch.Tensor]:
             return out
 
         return ev
+    if kind == "dfuse":
+        kid, dset, dclear = (_build(c) for c in shape[1:])
+        return lambda leaves: (kid(leaves) & ~dclear(leaves)) | dset(leaves)
     exist = _build(shape[1])
     kid = _build(shape[2])
     return lambda leaves: exist(leaves) & ~kid(leaves)
@@ -102,6 +115,11 @@ def _host_tree(shape: tuple, leaves: tuple) -> np.ndarray:
         for c in shape[2:]:
             out = fold(out, _host_tree(c, leaves))
         return out
+    if kind == "dfuse":
+        return np.bitwise_or(
+            np.bitwise_and(_host_tree(shape[1], leaves),
+                           np.bitwise_not(_host_tree(shape[3], leaves))),
+            _host_tree(shape[2], leaves))
     return np.bitwise_and(_host_tree(shape[1], leaves),
                           np.bitwise_not(_host_tree(shape[2], leaves)))
 

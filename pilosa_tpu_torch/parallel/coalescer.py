@@ -154,14 +154,20 @@ class Coalescer:
         return (idx.name, shape, shards), None
 
     def count(self, executor, idx, child, shards: tuple[int, ...],
-              use_vm: bool = True) -> int:
+              use_delta: bool = True, use_vm: bool = True) -> int:
         """One Count(tree) through the batching window -> total.
         Staging runs on the caller's thread, so a staging error belongs
-        to this query alone."""
+        to this query alone.  ``use_delta=False`` (``?nodelta=1``) goes
+        to staging.  Bucket keys need nothing more for deltas: a pending
+        overlay puts ``dfuse`` nodes in the staged shape, which the tape
+        compiler lowers to two more instructions, so the query lands in
+        the size class its overlay costs (pilosa_tpu/parallel/
+        coalescer.py:264-271)."""
         vmstage = None
         if self.vm and self.ragged and use_vm:
             vmstage = _containers.stage_vm(
-                idx, child, shards, max_tape=self.max_tape,
+                idx, child, shards, use_delta=use_delta,
+                max_tape=self.max_tape,
                 max_leaves=self.max_leaves, min_domain=self.vm_min_domain,
                 max_prefetch=self.vm_max_prefetch)
             if vmstage is None:
@@ -173,7 +179,8 @@ class Coalescer:
             entry = _Entry(vmstage.shape, (), vmstage.tape, Future(),
                            vm=vmstage)
         else:
-            shape, leaves = executor._fused_expr(idx, child, shards)
+            shape, leaves = executor._fused_expr(idx, child, shards,
+                                                 use_delta)
             key, tp = self._bucket_key(idx, shape, shards, leaves)
             entry = _Entry(shape, leaves, tp, Future())
         with self._lock:

@@ -41,9 +41,20 @@ The container engine and the VM decline trees with range leaves, so
 their Counts take the dense stacks (and the coalescer's dense buckets),
 as in the reference.
 
-Not part of the port yet: the result cache, the cluster fan-out, ingest
-deltas, string keys, attributes, time views and the other calls
-(Shift, Store, ClearRow, MinRow/MaxRow).
+Streaming ingest (pilosa_tpu/parallel/executor.py:1095-1135, 1585-1612):
+a Row leaf whose row has a pending delta plane in any shard fuses the
+overlay as a ``dfuse`` node over ``Field.device_delta_stacks``, staged
+before the base stack; the coalescer's VM stages the same overlay
+compressed (ops/containers.stage_vm) and the container engine declines
+it.  A per-shard read answers from the fragment's effective host words
+and never compacts.  TopN, Rows and GroupBy read whole matrices, which
+merge pending deltas first.  Range leaves stay on the base path (BSI
+views take no deltas).  ``ExecOptions.delta=False`` (``?nodelta=1``)
+compacts the touched rows' deltas up front and reads pure base state.
+
+Not part of the port yet: the result cache, the cluster fan-out, string
+keys, attributes, time views and the other calls (Shift, Store,
+ClearRow, MinRow/MaxRow).
 """
 
 from __future__ import annotations
@@ -86,6 +97,9 @@ class ExecOptions:
     # ?novm=1: route coalesced sparse Counts through the dense ragged/
     # fused engines instead of the bitmap VM
     vm: bool = True
+    # ?nodelta=1: compact the touched fragments' pending ingest deltas up
+    # front and read pure base state
+    delta: bool = True
 
 
 class ExecutionError(ValueError):
@@ -250,8 +264,29 @@ class Executor:
         return len(shards) > 1 and (call is None
                                     or self._fused_supported(idx, call))
 
+    @staticmethod
+    def _fused_row_leaf(f, row_id: int, shards: tuple[int, ...],
+                        leaves: list, use_delta: bool) -> tuple:
+        """One standard-view row leaf: the base stack, and when a pending
+        delta touches the row in any shard, its overlay stacks under a
+        ``dfuse`` node -- read BEFORE the base stack, so that a
+        compaction racing the two reads can only apply the overlay twice
+        (idempotent), never drop it."""
+        if use_delta:
+            ds = f.device_delta_stacks(row_id, shards)
+        else:
+            f.flush_deltas(shards)
+            ds = None
+        leaves.append(f.device_row_stack(row_id, shards))
+        shape = ("leaf", len(leaves) - 1)
+        if ds is not None:
+            leaves.extend(ds)
+            shape = ("dfuse", shape, ("leaf", len(leaves) - 2),
+                     ("leaf", len(leaves) - 1))
+        return shape
+
     def _fused_shape(self, idx, call: Call, shards: tuple[int, ...],
-                     leaves: list) -> tuple:
+                     leaves: list, use_delta: bool = True) -> tuple:
         """(shape, leaves) of ops/expr for a supported tree: every leaf a
         dense row stack of the whole shard set."""
         name = call.name
@@ -266,30 +301,31 @@ class Executor:
                     condition.op, value, shards))
                 return ("leaf", len(leaves) - 1)
             fname = call.field_arg()
-            leaves.append(idx.field(fname).device_row_stack(
-                call.args[fname], shards))
-            return ("leaf", len(leaves) - 1)
+            return self._fused_row_leaf(idx.field(fname), call.args[fname],
+                                        shards, leaves, use_delta)
         if name in _SET_OPS:
             return (_SET_OPS[name],
-                    *(self._fused_shape(idx, c, shards, leaves)
+                    *(self._fused_shape(idx, c, shards, leaves, use_delta)
                       for c in call.children))
         if name == "Not":
-            leaves.append(idx.existence_field().device_row_stack(0, shards))
-            exist = ("leaf", len(leaves) - 1)
+            exist = self._fused_row_leaf(idx.existence_field(), 0, shards,
+                                         leaves, use_delta)
             return ("not", exist,
-                    self._fused_shape(idx, call.children[0], shards, leaves))
+                    self._fused_shape(idx, call.children[0], shards, leaves,
+                                      use_delta))
         raise ExecutionError(f"unsupported fused call: {name}")
 
-    def _fused_expr(self, idx, call: Call, shards: tuple[int, ...]):
+    def _fused_expr(self, idx, call: Call, shards: tuple[int, ...],
+                    use_delta: bool = True):
         leaves: list = []
-        shape = self._fused_shape(idx, call, shards, leaves)
+        shape = self._fused_shape(idx, call, shards, leaves, use_delta)
         return shape, tuple(leaves)
 
-    def _fused_eval(self, idx, call: Call, shards: tuple[int, ...]
-                    ) -> torch.Tensor:
+    def _fused_eval(self, idx, call: Call, shards: tuple[int, ...],
+                    use_delta: bool = True) -> torch.Tensor:
         """A supported tree -> int32 [n_shards, words] stack on the
         device, through the dense stacks (executor.py:1187-1201)."""
-        shape, leaves = self._fused_expr(idx, call, shards)
+        shape, leaves = self._fused_expr(idx, call, shards, use_delta)
         return expr.evaluate(shape, leaves)
 
     @staticmethod
@@ -321,13 +357,14 @@ class Executor:
             if plan is not None:
                 partials = plan.row_words()
             else:
-                stack = bm.to_numpy(self._fused_eval(idx, call, g))
+                stack = bm.to_numpy(self._fused_eval(idx, call, g,
+                                                     opt.delta))
                 partials = [(s, stack[i].copy()) for i, s in enumerate(g)
                             if stack[i].any()]
         else:
             partials = []
             for s in shards:
-                w = self._bitmap_words_shard(idx, call, s)
+                w = self._bitmap_words_shard(idx, call, s, opt.delta)
                 if w is not None:
                     partials.append((s, bm.to_numpy(w).copy()))
         for shard, words in partials:
@@ -335,13 +372,21 @@ class Executor:
                 row.segments[shard] = words
         return row
 
-    def _field_row_words(self, f, row_id: int, shard: int):
+    def _field_row_words(self, f, row_id: int, shard: int,
+                         use_delta: bool = True):
+        """One shard's row on the device.  A pending delta answers from
+        the fragment's effective host words and stays pending: a
+        per-shard read never compacts (executor.py:1585-1612).  Under
+        ``?nodelta=1`` the fragment's delta merges first."""
         frag = f.fragment(shard)
         if frag is None:
             return None
+        if not use_delta:
+            frag.flush_delta()
         return bm.to_tensor(frag.row(row_id), self.device)
 
-    def _bitmap_words_shard(self, idx, call: Call, shard: int):
+    def _bitmap_words_shard(self, idx, call: Call, shard: int,
+                            use_delta: bool = True):
         """Evaluate a bitmap tree on one shard -> int32 words on the
         device, or None for empty (executor.py:1498)."""
         name = call.name
@@ -358,12 +403,12 @@ class Executor:
             if row_id is None:
                 raise ExecutionError(
                     f"Row(): field {fname!r} requires an integer row")
-            return self._field_row_words(f, row_id, shard)
+            return self._field_row_words(f, row_id, shard, use_delta)
         if name in ("Union", "Xor"):
             op = bm.b_or if name == "Union" else bm.b_xor
             out = None
             for child in call.children:
-                w = self._bitmap_words_shard(idx, child, shard)
+                w = self._bitmap_words_shard(idx, child, shard, use_delta)
                 if w is not None:
                     out = w if out is None else op(out, w)
             return out
@@ -371,11 +416,12 @@ class Executor:
             if not call.children:
                 raise ExecutionError(
                     f"{name}() requires at least one row query")
-            out = self._bitmap_words_shard(idx, call.children[0], shard)
+            out = self._bitmap_words_shard(idx, call.children[0], shard,
+                                           use_delta)
             for child in call.children[1:]:
                 if out is None:
                     return None
-                w = self._bitmap_words_shard(idx, child, shard)
+                w = self._bitmap_words_shard(idx, child, shard, use_delta)
                 if name == "Intersect":
                     if w is None:
                         return None
@@ -390,10 +436,11 @@ class Executor:
             if ef is None:
                 raise ExecutionError("Not() queries require the index to "
                                      "have 'trackExistence' enabled")
-            exist = self._field_row_words(ef, 0, shard)
+            exist = self._field_row_words(ef, 0, shard, use_delta)
             if exist is None:
                 return None
-            child = self._bitmap_words_shard(idx, call.children[0], shard)
+            child = self._bitmap_words_shard(idx, call.children[0], shard,
+                                             use_delta)
             return exist if child is None else bm.b_not(child, exist)
         raise ExecutionError(f"{name}() is not supported by this port yet")
 
@@ -429,18 +476,19 @@ class Executor:
                 # ?nocontainers disables the VM too: it executes over
                 # compressed pools
                 return self.coalescer.count(
-                    self, idx, child, g, use_vm=opt.vm and opt.containers)
+                    self, idx, child, g, use_delta=opt.delta,
+                    use_vm=opt.vm and opt.containers)
             plan = containers.plan_fused(idx, child, g, opt)
             if plan is not None:
                 return sum(plan.counts())
-            shape, leaves = self._fused_expr(idx, child, g)
+            shape, leaves = self._fused_expr(idx, child, g, opt.delta)
             counts = expr.evaluate(shape, leaves, counts=True)
             # per-shard int32 counts summed as Python ints: one int32
             # reduce over the stack could wrap past 2^31 set bits
             return int(counts.to("cpu").to(torch.int64).sum())
         total = 0
         for s in shards:
-            words = self._bitmap_words_shard(idx, child, s)
+            words = self._bitmap_words_shard(idx, child, s, opt.delta)
             if words is not None:
                 total += bm.popcount(words)
         return total
@@ -490,7 +538,8 @@ class Executor:
             if len(row_ids) == 0:
                 return {}
             if filter_call is not None:
-                fw = self._bitmap_words_shard(idx, filter_call, shard)
+                fw = self._bitmap_words_shard(idx, filter_call, shard,
+                                              opt.delta)
                 if fw is None:
                     return {}
                 counts = bm.row_counts_masked(matrix, fw)
@@ -505,7 +554,8 @@ class Executor:
         fused_ok = self._fuse_eligible(idx, shards, filter_call)
         if fused_ok:
             parts = [self._fused_topn_counts_uncached(idx, f, filter_call,
-                                                      tuple(shards))]
+                                                      tuple(shards),
+                                                      opt.delta)]
         else:
             parts = self._local_map(map_fn, shards)
         totals: dict[int, int] = {}
@@ -525,7 +575,7 @@ class Executor:
                 idx, Call("Count", children=[filter_call]), shards, opt)
             if fused_ok:
                 full_counts = self._fused_topn_counts_uncached(
-                    idx, f, None, tuple(shards))
+                    idx, f, None, tuple(shards), opt.delta)
             else:
                 full = self._execute_topn(
                     idx, Call("TopN", {"_field": fname}), shards, opt)
@@ -551,14 +601,16 @@ class Executor:
         return pairs
 
     def _fused_topn_counts_uncached(self, idx, f, filter_call,
-                                    shards: tuple[int, ...]
+                                    shards: tuple[int, ...],
+                                    use_delta: bool = True
                                     ) -> dict[int, int]:
         """Every shard's TopN row counts in one scan of the field's
         matrix stack (executor.py:1965-2046): with a filter, one launch
         of K4 against the filter's fused stack, each row against its own
         shard's filter row.  An unfiltered scan is answered from the
-        fragments' rank caches when every one is complete, and otherwise
-        warms them."""
+        fragments' rank caches when every one is complete (none is while
+        a delta is pending), and otherwise warms them.  The matrix stack
+        merges the field's pending deltas first."""
         view = f.view(VIEW_STANDARD)
         totals: dict[int, int] = {}
         if view is None:
@@ -585,7 +637,7 @@ class Executor:
         if mat_dev is None:
             return totals
         if filter_call is not None:
-            filt = self._fused_eval(idx, filter_call, shards)
+            filt = self._fused_eval(idx, filter_call, shards, use_delta)
             counts = bm.row_counts_gathered(mat_dev, filt, pos_dev)
         else:
             counts = bm.row_counts(mat_dev)
@@ -717,7 +769,8 @@ class Executor:
         if (filter_call is not None
                 and self._fuse_eligible(idx, shards, filter_call)):
             shard_pos = {s: i for i, s in enumerate(shards)}
-            filt_stack = self._fused_eval(idx, filter_call, tuple(shards))
+            filt_stack = self._fused_eval(idx, filter_call, tuple(shards),
+                                          opt.delta)
 
         def map_fn(shard):
             mats = []
@@ -744,7 +797,8 @@ class Executor:
             if filt_stack is not None and shard in shard_pos:
                 masks = filt_stack[shard_pos[shard]].unsqueeze(0)
             elif filter_call is not None:
-                base = self._bitmap_words_shard(idx, filter_call, shard)
+                base = self._bitmap_words_shard(idx, filter_call, shard,
+                                                opt.delta)
                 if base is None:
                     return {}
                 masks = base.unsqueeze(0)
@@ -827,8 +881,10 @@ class Executor:
         if f.options.type == FieldType.INT and self._fuse_eligible(
                 idx, shards, call.children[0] if call.children else None):
             if call.name == "Sum":
-                return self._fused_sum(idx, f, call, tuple(shards))
-            return self._fused_extreme(idx, f, call, tuple(shards))
+                return self._fused_sum(idx, f, call, tuple(shards),
+                                       opt.delta)
+            return self._fused_extreme(idx, f, call, tuple(shards),
+                                       opt.delta)
 
         filter_row = self._local_filter_row(idx, call, shards, opt)
         out = ValCount()
@@ -844,22 +900,24 @@ class Executor:
             out = getattr(out, reducer)(vc)
         return out
 
-    def _fused_consider(self, idx, f, call: Call, shards: tuple[int, ...]):
+    def _fused_consider(self, idx, f, call: Call, shards: tuple[int, ...],
+                        use_delta: bool):
         """(plane stack, consider, filter stack or None) of a fused
         aggregate."""
         P = f.device_plane_stack(shards)
         exists = P[:, bsi_ops.EXISTS_PLANE]
         if not call.children:
             return P, exists, None
-        filt = self._fused_eval(idx, call.children[0], shards)
+        filt = self._fused_eval(idx, call.children[0], shards, use_delta)
         return P, exists & filt, filt
 
-    def _fused_sum(self, idx, f, call: Call, shards: tuple[int, ...]
-                   ) -> ValCount:
+    def _fused_sum(self, idx, f, call: Call, shards: tuple[int, ...],
+                   use_delta: bool = True) -> ValCount:
         """Sum over all shards from the plane stack (executor.py:
         2476-2496): the per-plane counts in two K4 launches, the count of
         a filtered Sum in one K1 launch, exact assembly in Python ints."""
-        P, consider, filt = self._fused_consider(idx, f, call, shards)
+        P, consider, filt = self._fused_consider(idx, f, call, shards,
+                                                 use_delta)
         pos, neg = bsi_ops.sign_plane_counts(P, consider)
         pos = pos.to("cpu").numpy().astype(np.int64).sum(axis=0)
         neg = neg.to("cpu").numpy().astype(np.int64).sum(axis=0)
@@ -871,13 +929,14 @@ class Executor:
                     for i, (p, n) in enumerate(zip(pos, neg)))
         return ValCount(total + total_count * f.options.base, total_count)
 
-    def _fused_extreme(self, idx, f, call: Call, shards: tuple[int, ...]
-                       ) -> ValCount:
+    def _fused_extreme(self, idx, f, call: Call, shards: tuple[int, ...],
+                       use_delta: bool = True) -> ValCount:
         """Min/Max over all shards from one stacked scan (executor.py:
         2498-2537): every shard's candidate, then fragment.min/max's
         sign branching (fragment.go:1147/1191) and smaller/larger on the
         host."""
-        P, consider, _ = self._fused_consider(idx, f, call, shards)
+        P, consider, _ = self._fused_consider(idx, f, call, shards,
+                                              use_delta)
         is_min = call.name == "Min"
         (signed_cnt, all_cnt, primary_taken, fallback_taken,
          primary_n, fallback_n) = [

@@ -11,6 +11,7 @@ serves:
     POST /index/{index}/field/{field}/import-roaring/{shard}
     POST /index/{index}/query          (raw PQL or JSON {"query": ...})
     GET  /debug/ragged
+    GET  /debug/ingest
 
 ``serialize_result`` is the reference's (handler.py:46), so the JSON of
 a query is byte-identical between the two packages.  Built on the
@@ -230,7 +231,10 @@ class Handler:
             # ?nocoalesce=true: no cross-query batching for this request
             coalesce=params.get("nocoalesce") != "true",
             # ?novm=1: coalesced sparse Counts take the dense engines
-            vm=params.get("novm") not in ("1", "true"))
+            vm=params.get("novm") not in ("1", "true"),
+            # ?nodelta=1: compact pending ingest deltas up front and read
+            # pure base state (pilosa_tpu/server/handler.py:779-782)
+            delta=params.get("nodelta") not in ("1", "true"))
         if exclude_columns:
             for r in results:
                 if isinstance(r, Row):
@@ -270,6 +274,16 @@ class Handler:
                 "vmMaxPrefetch": co.vm_max_prefetch,
             })
         self._json(req, out)
+
+    @route("GET", "/debug/ingest")
+    def handle_debug_ingest(self, req, params, path, body):
+        """Streaming-ingest state with the reference's keys
+        (pilosa_tpu/server/handler.py:1361): the [ingest] config in
+        force, the pending-delta totals, the compaction counters and the
+        largest pending deltas."""
+        from pilosa_tpu_torch.ingest import compactor
+
+        self._json(req, compactor.compactor().debug())
 
     @route("POST", "/index/{index}")
     def handle_create_index(self, req, params, path, body):

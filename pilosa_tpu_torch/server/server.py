@@ -15,6 +15,17 @@ are process-wide, as in the reference: ``open`` takes a reference on the
 config (the first one snapshots the config in force) and applies the
 knobs given; ``close`` gives it back, and the last one restores the
 snapshot.  ``None`` keeps the value in force (default: kinds on).
+
+The ``[ingest]`` knobs ``ingest_delta_enabled`` (default true, as
+``[ingest] delta-enabled``), ``ingest_delta_budget_bytes``,
+``ingest_compact_threshold_bits`` and ``ingest_compact_interval``
+(server.py:88-91) are process-wide too: the first server constructed
+captures the config in force, each applies its knobs, an ingest-enabled
+server takes a reference on the compactor's scan thread at construction
+(pilosa_tpu_torch/ingest/compactor.retain) and gives it back on close,
+and the last closer restores the captured config
+(pilosa_tpu/server/server.py:288-311, 382-391, 716-735).  ``close`` is
+idempotent.
 """
 
 from __future__ import annotations
@@ -22,7 +33,9 @@ from __future__ import annotations
 import torch
 
 from pilosa_tpu_torch import device as devmod
+from pilosa_tpu_torch import ingest
 from pilosa_tpu_torch.api import API
+from pilosa_tpu_torch.ingest import compactor
 from pilosa_tpu_torch.models.holder import Holder
 from pilosa_tpu_torch.ops import containers, tape
 from pilosa_tpu_torch.parallel.coalescer import Coalescer
@@ -42,7 +55,11 @@ class Server:
                  vm_max_prefetch: int = containers.VM_MAX_PREFETCH,
                  containers_kinds: bool | None = None,
                  containers_array_max: int | None = None,
-                 containers_run_cap: int | None = None):
+                 containers_run_cap: int | None = None,
+                 ingest_delta_enabled: bool = True,
+                 ingest_delta_budget_bytes: int | None = None,
+                 ingest_compact_threshold_bits: int | None = None,
+                 ingest_compact_interval: float | None = None):
         self.device = devmod.resolve(device)
         self.data_dir = data_dir
         self.host = host
@@ -59,6 +76,20 @@ class Server:
                                   "array_max": containers_array_max,
                                   "run_cap": containers_run_cap}
         self._containers_retained = False
+        ingest.capture_baseline()
+        ingest.configure(delta_enabled=ingest_delta_enabled,
+                         delta_budget_bytes=ingest_delta_budget_bytes,
+                         compact_threshold_bits=ingest_compact_threshold_bits,
+                         compact_interval=ingest_compact_interval)
+        self._ingest_enabled = bool(ingest_delta_enabled)
+        self._ingest_retained = False
+        if self._ingest_enabled:
+            # taken at construction, where the configure above landed, so
+            # a sibling's close cannot restore the baseline under a
+            # constructed but not yet opened server
+            compactor.retain()
+            self._ingest_retained = True
+        self._closed = False
         self.holder: Holder | None = None
         self.executor: Executor | None = None
         self.api: API | None = None
@@ -70,6 +101,11 @@ class Server:
 
     def open(self) -> "Server":
         """Open the data directory and start serving HTTP."""
+        if self._ingest_enabled and not self._ingest_retained:
+            # reopened after close: take the compactor reference back
+            compactor.retain()
+            self._ingest_retained = True
+        self._closed = False
         containers.retain()
         self._containers_retained = True
         containers.configure(**self._containers_knobs)
@@ -89,6 +125,11 @@ class Server:
         return self
 
     def close(self) -> None:
+        if self._closed:
+            # idempotent: a second close must not release the shared
+            # compactor reference under a still-open sibling
+            return
+        self._closed = True
         if self.handler is not None:
             self.handler.close()
             self.handler = None
@@ -96,6 +137,15 @@ class Server:
             self.holder.close()
             self.holder = None
         self._release_containers()
+        if self._ingest_retained:
+            self._ingest_retained = False
+            last = compactor.release()
+        else:
+            # an ingest-disabled server restores only when no
+            # ingest-enabled sibling still holds a reference
+            last = compactor.refs() == 0
+        if last:
+            ingest.restore_baseline()
 
     def _release_containers(self) -> None:
         if self._containers_retained:

@@ -30,6 +30,7 @@ from pilosa_tpu.parallel.executor import ExecOptions as JOpts
 from pilosa_tpu.parallel.executor import Executor as JExecutor
 from pilosa_tpu.runtime import resultcache
 from pilosa_tpu.server.server import Server as JServer
+from pilosa_tpu_torch import ingest as tingest
 from pilosa_tpu_torch.models.holder import Holder as THolder
 from pilosa_tpu_torch.ops import bitmap as tbm
 from pilosa_tpu_torch.ops import containers as tct
@@ -62,8 +63,13 @@ QS = [f"Count({s})" for s in SHAPES_16]
 
 @pytest.fixture(autouse=True)
 def _reference_configuration():
+    """The routes these tests pin: kinds off in both packages and the
+    port's ingest deltas off, as the JAX holders run them (the reference
+    module's default)."""
     mesh_was = meshexec._cfg.enabled
     rc_was = resultcache.cache().enabled
+    delta_was = tingest.config().delta_enabled
+    tingest.configure(delta_enabled=False)
     meshexec.configure(enabled=False)
     jct.reset()
     jct.configure(kinds=False)
@@ -73,6 +79,7 @@ def _reference_configuration():
     jtape.reset_counters()
     ttape.reset_counters()
     yield
+    tingest.configure(delta_enabled=delta_was)
     meshexec.configure(enabled=mesh_was)
     resultcache.cache().enabled = rc_was
     jct.reset()
@@ -324,7 +331,10 @@ def test_resolve_enabled():
     with pytest.raises(ValueError):
         TServer("unused", device="cpu", coalescer_enabled="ture")
     srv = TServer("unused", device="cpu")
-    assert srv.coalescer.enabled is False  # "auto" on the CPU
+    try:
+        assert srv.coalescer.enabled is False  # "auto" on the CPU
+    finally:
+        srv.close()  # gives back the compactor reference it took
 
 
 def _get(uri: str) -> dict:
@@ -344,7 +354,8 @@ def test_http_escapes_and_debug_ragged(tmp_path):
                  coalescer_enabled=True, ragged_prewarm=False,
                  containers_kinds=False, ingest_delta_enabled=False)
     ts = TServer(str(tmp_path / "t"), device="cpu", coalescer_enabled=True,
-                 vm_min_domain=16, vm_max_prefetch=1 << 14)
+                 vm_min_domain=16, vm_max_prefetch=1 << 14,
+                 ingest_delta_enabled=False)
     js.open()
     ts.open()
     try:

@@ -49,6 +49,7 @@ from pilosa_tpu.parallel.executor import Executor as JExecutor
 from pilosa_tpu.pql import parse as jparse
 from pilosa_tpu.runtime import resultcache
 from pilosa_tpu.server.server import Server as JServer
+from pilosa_tpu_torch import ingest as tingest
 from pilosa_tpu_torch.models.holder import Holder as THolder
 from pilosa_tpu_torch.ops import bitmap as tbm
 from pilosa_tpu_torch.ops import containers as tct
@@ -163,13 +164,16 @@ def naive_tree(tree: str, rows: dict, shard: int, exist: NaiveBitmap):
 @pytest.fixture(autouse=True)
 def _kinds_configuration():
     """Kinds on in both packages; mesh, ingest deltas and the result
-    cache off on the JAX side.  Restores exactly the fields it sets."""
+    cache off on the JAX side, and ingest deltas off in the port too (the
+    base routes these tests pin).  Restores exactly the fields it
+    sets."""
     mesh_was = (meshexec._cfg.enabled, meshexec._cfg.axis_size)
     jct_was = {k: getattr(jct.config(), k)
                for k in type(jct.config()).__slots__}
     tct_was = {k: getattr(tct.config(), k)
                for k in type(tct.config()).__slots__}
     delta_was = jingest.config().delta_enabled
+    tdelta_was = tingest.config().delta_enabled
     rc_was = resultcache.cache().enabled
     meshexec.configure(enabled=False)
     jct.configure(enabled=True, threshold=jct.DEFAULT_THRESHOLD, kinds=True,
@@ -177,11 +181,13 @@ def _kinds_configuration():
     tct.configure(enabled=True, threshold=tct.DEFAULT_THRESHOLD, kinds=True,
                   array_max=tct.DEFAULT_ARRAY_MAX, run_cap=tct.DEFAULT_RUN_CAP)
     jingest.config().delta_enabled = False
+    tingest.configure(delta_enabled=False)
     resultcache.cache().enabled = False
     try:
         yield
     finally:
         resultcache.cache().enabled = rc_was
+        tingest.configure(delta_enabled=tdelta_was)
         jingest.config().delta_enabled = delta_was
         jct.configure(**jct_was)
         tct.configure(**tct_was)

@@ -18,6 +18,7 @@ from pilosa_tpu.parallel import meshexec
 from pilosa_tpu.parallel.executor import ExecOptions as JOpts
 from pilosa_tpu.pql import parse as jparse
 from pilosa_tpu.runtime import resultcache
+from pilosa_tpu_torch import ingest as tingest
 from pilosa_tpu_torch.models.holder import Holder as THolder
 from pilosa_tpu_torch.ops import bitmap as tbm
 from pilosa_tpu_torch.ops import containers as tct
@@ -43,8 +44,13 @@ DENSE = {"Intersect(Row(f=1), Row(f=4))", "Not(Row(f=1))"}
 
 @pytest.fixture(autouse=True)
 def _single_device_all_bitmap():
+    """The all-bitmap base route these tests pin: kinds off in both
+    packages and the port's ingest deltas off, as the JAX holders run
+    them (the reference module's default)."""
     mesh_was = meshexec._cfg.enabled
     rc_was = resultcache.cache().enabled
+    delta_was = tingest.config().delta_enabled
+    tingest.configure(delta_enabled=False)
     meshexec.configure(enabled=False)
     jct.reset()
     jct.configure(kinds=False)
@@ -52,6 +58,7 @@ def _single_device_all_bitmap():
     tct.configure(kinds=False)
     resultcache.cache().enabled = False
     yield
+    tingest.configure(delta_enabled=delta_was)
     meshexec.configure(enabled=mesh_was)
     resultcache.cache().enabled = rc_was
     jct.reset()

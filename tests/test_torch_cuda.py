@@ -10,7 +10,10 @@ source's), the executor's
 coalesced heterogeneous batch launching K3 once (both with container
 kinds off, so that the sparse rows stay bitmap blocks), K3-kinds at the
 edges of its decode (tests/torch_kinds_edges.py), a coalesced
-batch over array, run and bitmap rows launching K3-kinds once, TopN and GroupBy
+batch over array, run and bitmap rows launching K3-kinds once,
+coalesced batches over rows with pending ingest deltas launching K3 and
+K3-kinds once on ``dfuse`` tapes (each launch held against its plain
+version), TopN and GroupBy
 launching K4 and K5, and an int field's range rows and aggregates
 launching K6, K4 and K1 where the CPU tests see their dispatch sites.
 
@@ -120,6 +123,9 @@ def test_count_intersect_on_cuda_launches_k2_once(cuda_device,
                           replace=False) for r in (1, 2)}
     for r, c in cols.items():
         f.import_bits(np.full(len(c), r), c)
+    # the imports wait in the fragments' delta planes, which route a
+    # Count dense; compacted, the rows take the container route
+    f.flush_deltas()
     want = len(set(cols[1].tolist()) & set(cols[2].tolist()))
     ex = Executor(h, device=cuda_device)
     pql = "Count(Intersect(Row(f=1), Row(f=2)))"
@@ -189,7 +195,7 @@ def _k3_cases() -> dict:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("label", ["shared", "same_row", "pads", "caps",
-                                   "grouped", "l64t32"])
+                                   "grouped", "l64t32", "dfuse"])
 def test_k3_plans_match_the_plain_version_in_one_launch(cuda_device, label):
     """tests/torch_vm_cases.py at D = 64: 16 queries sharing five leaves,
     one row in two slots, pads and COPY chains, the caps (16, 32), a
@@ -244,6 +250,10 @@ def test_a_coalesced_heterogeneous_batch_launches_k3_once(
                           replace=False) for r in (1, 2, 3)}
     for r, c in cols.items():
         f.import_bits(np.full(len(c), r), c)
+    # the imports wait in delta planes, whose dfuse leaves would put the
+    # 2- and 3-row trees in two tape size classes; compacted, they share
+    # one launch
+    f.flush_deltas()
     sets = {r: set(c.tolist()) for r, c in cols.items()}
     qs = {"Count(Intersect(Row(f=1), Row(f=2)))": sets[1] & sets[2],
           "Count(Union(Row(f=1), Row(f=3)))": sets[1] | sets[3],
@@ -416,6 +426,7 @@ def test_a_mixed_kind_coalesced_batch_launches_k3_kinds_once(cuda_device):
             3: rng.choice(width, size=width // 12, replace=False)}
     for r, c in cols.items():
         f.import_bits(np.full(len(c), r), c)
+    f.flush_deltas()  # base rows: their kinds, one size class
     kinds = {int(k) for r in cols for s in range(n_shards)
              for k in f.fragment(s).row_container_kinds(r)[3]}
     assert kinds == {1, 2, 3}  # array, bitmap and run rows
@@ -447,6 +458,121 @@ def test_a_mixed_kind_coalesced_batch_launches_k3_kinds_once(cuda_device):
     assert ck.vm_counts_kinds.launches - before[1] == \
         tape.counters()["vm.executions"] == 1
     h.close()
+
+
+def _delta_batch(device, rows: dict, writes: dict, monkeypatch) -> tuple:
+    """Rows imported and compacted, then ``writes`` ({row: (sets,
+    clears)}) left pending in the delta planes; four coalesced Counts
+    over them on ``device``.  Every VM launch is held against its plain
+    version.  Returns (answers, oracle, staged shapes, K3 launches,
+    K3-kinds launches, vm.executions)."""
+    import threading
+
+    h = Holder(None, device=device)
+    f = h.create_index("i").create_field("f")
+    for r, c in rows.items():
+        f.import_bits(np.full(len(c), r), c)
+    f.flush_deltas()
+    sets = {r: set(c.tolist()) for r, c in rows.items()}
+    for r, (add, drop) in writes.items():
+        f.import_bits(np.full(len(add), r), add)
+        f.import_bits(np.full(len(drop), r), drop, clear=True)
+        sets[r] = (sets[r] | set(add.tolist())) - set(drop.tolist())
+    assert all(f.fragment(s)._delta is not None for s in range(3))
+    # three rows each: nine slots with the overlays, one size class
+    qs = {"Count(Intersect(Row(f=1), Row(f=2), Row(f=3)))":
+              sets[1] & sets[2] & sets[3],
+          "Count(Union(Row(f=1), Row(f=3), Row(f=2)))":
+              sets[1] | sets[3] | sets[2],
+          "Count(Difference(Row(f=3), Row(f=1), Row(f=2)))":
+              sets[3] - sets[1] - sets[2],
+          "Count(Xor(Row(f=2), Row(f=3), Row(f=1)))":
+              sets[2] ^ sets[3] ^ sets[1]}
+    shapes = []
+    real_stage = containers.stage_vm
+
+    def stage(*a, **k):
+        st = real_stage(*a, **k)
+        shapes.append(None if st is None else st.shape)
+        return st
+
+    real = {n: getattr(ck, n) for n in ("vm_counts", "vm_counts_kinds")}
+
+    def held(name):
+        def run(*args):
+            got = real[name](*args)
+            want = getattr(ck, name + "_plain")(*args)
+            assert torch.equal(got, want), name
+            return got
+        return run
+
+    # the VM's launches go through a stand-in for the kernels module, so
+    # that each is held against its plain version while the wrappers
+    # count their launches as always
+    import types
+
+    monkeypatch.setattr(containers, "stage_vm", stage)
+    monkeypatch.setattr(tape, "cuda_kernels", types.SimpleNamespace(
+        **{name: held(name) for name in real}))
+    ex = Executor(h, device=device)
+    ex.coalescer = Coalescer(window_s=2.0, max_batch=len(qs), device=device)
+    tape.reset_counters()
+    before = {n: w.launches for n, w in real.items()}
+    bar = threading.Barrier(len(qs))
+    got = {}
+
+    def run(q):
+        bar.wait()
+        got[q] = ex.execute("i", q)[0]
+
+    ts = [threading.Thread(target=run, args=(q,)) for q in qs]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=120)
+    h.close()
+    return (got, {q: len(s) for q, s in qs.items()}, shapes,
+            real["vm_counts"].launches - before["vm_counts"],
+            real["vm_counts_kinds"].launches - before["vm_counts_kinds"],
+            tape.counters()["vm.executions"])
+
+
+def _delta_writes(rng, width: int) -> dict:
+    """A few sets and clears on every row, in every shard."""
+    return {r: (rng.choice(width, size=40, replace=False),
+                rng.choice(width, size=40, replace=False)) for r in (1, 2, 3)}
+
+
+@pytest.mark.cuda
+def test_coalesced_counts_over_pending_deltas_launch_k3_once(
+        cuda_device, bitmap_containers, monkeypatch):
+    rng = np.random.default_rng(29)
+    width = 3 * SHARD_WIDTH
+    rows = {r: rng.choice(width, size=SHARD_WIDTH // 20, replace=False)
+            for r in (1, 2, 3)}
+    got, want, shapes, k3, k3k, execs = _delta_batch(
+        cuda_device, rows, _delta_writes(rng, width), monkeypatch)
+    assert got == want
+    assert shapes and all(s is not None and "dfuse" in str(s)
+                          for s in shapes)
+    assert (k3, k3k) == (1, 0) and execs == 1
+
+
+@pytest.mark.cuda
+def test_coalesced_counts_over_pending_deltas_launch_k3_kinds_once(
+        cuda_device, monkeypatch):
+    rng = np.random.default_rng(31)
+    width = 3 * SHARD_WIDTH
+    rows = {1: rng.choice(width, size=width // 1000, replace=False),
+            2: np.concatenate([np.arange(s, s + 512) for s in range(
+                0, width, 8192)]),
+            3: rng.choice(width, size=width // 12, replace=False)}
+    got, want, shapes, k3, k3k, execs = _delta_batch(
+        cuda_device, rows, _delta_writes(rng, width), monkeypatch)
+    assert got == want
+    assert shapes and all(s is not None and "dfuse" in str(s)
+                          for s in shapes)
+    assert (k3, k3k) == (0, 1) and execs == 1
 
 
 def _words(seed: int, shape) -> np.ndarray:

@@ -31,6 +31,7 @@ import torch
 from pilosa_tpu.models.cache import TopNCache as JCache
 from pilosa_tpu.models.fragment import Fragment as JFragment
 from pilosa_tpu.server.server import Server as JServer
+from pilosa_tpu_torch import ingest as tingest
 from pilosa_tpu_torch.models.cache import TopNCache as TCache
 from pilosa_tpu_torch.models.fragment import Fragment as TFragment
 from pilosa_tpu_torch.ops import bitmap as tbm
@@ -255,7 +256,18 @@ def _frag_files(src_path: str, dst_dir) -> str:
     return dst
 
 
-def test_each_package_opens_the_others_rank_cache(tmp_path):
+@pytest.fixture
+def _port_delta_off():
+    """The port's ingest deltas off, as the bare JAX fragment runs (the
+    reference module's default): both fragments take the base write path
+    whose rank cache this test compares."""
+    was = tingest.config().delta_enabled
+    tingest.configure(delta_enabled=False)
+    yield
+    tingest.configure(delta_enabled=was)
+
+
+def test_each_package_opens_the_others_rank_cache(tmp_path, _port_delta_off):
     rng = np.random.default_rng(3)
     pos = np.unique(rng.integers(0, 6 * SHARD_WIDTH, size=4000)).astype(
         np.uint64)

@@ -17,7 +17,11 @@ int32[L, B, D]), the last pool row all zero:
   32 registers over rows of their own, so their distinct leaves need
   more than one query group;
 - ``l64t32``: random SSA programs at (L, T) = (64, 32), a shape the
-  wrapper admits beyond the caps.
+  wrapper admits beyond the caps;
+- ``dfuse``: the 16 shapes of ``shared`` with every leaf replaced by a
+  streaming-ingest ``dfuse`` node ``(base & ~clear) | set`` over three
+  rows (15 slots), the set and clear overlays nearly empty: a few live
+  containers, every other lane on the zero row.
 
 numpy and the port's tape compiler (pilosa_tpu_torch/ops/tape.py)."""
 
@@ -51,6 +55,17 @@ def tree_shape(tree, leaves: list):
     return ("leaf", len(leaves) - 1)
 
 
+def dfuse_shape(tree, leaves: list):
+    """An ops/expr shape of ``tree`` with every row leaf delta-fused:
+    ``("dfuse", base, set, clear)`` over three slots; ``leaves`` collects
+    the row, ``("set", row)`` and ``("clear", row)`` in slot order."""
+    if isinstance(tree, tuple):
+        return (tree[0],) + tuple(dfuse_shape(c, leaves) for c in tree[1:])
+    base = len(leaves)
+    leaves += [tree, ("set", tree), ("clear", tree)]
+    return ("dfuse", ("leaf", base), ("leaf", base + 1), ("leaf", base + 2))
+
+
 def row_pool(rng, n_rows: int, domain: int) -> tuple:
     """(pool, rows_of, zero): ``n_rows`` rows of ``domain`` containers,
     about a quarter of the bits set, a tenth of the containers absent (on
@@ -70,15 +85,32 @@ def row_pool(rng, n_rows: int, domain: int) -> tuple:
     return pool, rows_of, zero
 
 
+def delta_pool(rng, n_rows: int, domain: int) -> tuple:
+    """``row_pool`` with a set and a clear overlay row per row, keyed
+    ``("set", r)`` and ``("clear", r)``: a twentieth of their containers
+    live, every other lane on the zero row."""
+    pool, rows_of, zero = row_pool(rng, 3 * n_rows, domain)
+    out = {r: rows_of[r] for r in range(n_rows)}
+    for i, kind in enumerate(("set", "clear")):
+        for r in range(n_rows):
+            ix = rows_of[n_rows * (i + 1) + r].copy()
+            ix[rng.random(domain) >= 0.05] = zero
+            out[(kind, r)] = ix
+    return pool, out, zero
+
+
 def coalesced(rng, trees: list, n_rows: int, domain: int,
-              tape_len: int | None = None, slots: int | None = None):
+              tape_len: int | None = None, slots: int | None = None,
+              delta: bool = False):
     """(pool, prog, gidx) of the VM batch of ``trees`` over ``n_rows``
-    rows, as tape.execute_vm stages it."""
-    pool, rows_of, zero = row_pool(rng, n_rows, domain)
+    rows, as tape.execute_vm stages it; with ``delta`` every row leaf is
+    delta-fused over overlay rows of its own."""
+    pool, rows_of, zero = (delta_pool if delta else row_pool)(rng, n_rows,
+                                                              domain)
     batch = []
     for tree in trees:
         leaves: list = []
-        shape = tree_shape(tree, leaves)
+        shape = (dfuse_shape if delta else tree_shape)(tree, leaves)
         batch.append((tape.compile_shape(shape, len(leaves)),
                       [rows_of[r] for r in leaves]))
     tb, lb = tape.size_class(max(len(t.instrs) for t, _ in batch),
@@ -137,4 +169,6 @@ def k3_cases(seed: int, domain: int) -> list:
         ("caps", *random_ssa(rng, 3, 16, 32, 48, domain, pad_q=1)),
         ("grouped", *chained(rng, 8, 16, 32, domain)),
         ("l64t32", *random_ssa(rng, 2, 64, 32, 96, domain)),
+        ("dfuse", *coalesced(rng, trees16(0, 1, 2, 3, 4), 5, domain,
+                             delta=True)),
     ]
