@@ -11,8 +11,9 @@ rows and Sum/Min/Max over an int field on it, and Count/Row trees over
 array, run and bitmap containers ([containers] kinds, the server's
 default), and writes that wait in ingest delta planes ([ingest]
 delta-enabled, the server's default) under coalesced, dense and
-per-shard reads -- and holds every hand-written kernel against its plain
-PyTorch version on the card.
+per-shard reads, and the result cache ([cache] enabled, the server's
+default) with the calls it keys -- and holds every hand-written kernel
+against its plain PyTorch version on the card.
 
 The server runs the port's defaults, with one knob set: its compactor
 scans once an hour (``INGEST_INTERVAL``), so that every delta merge in
@@ -118,6 +119,16 @@ paths read base rows, as they would once the compactor had run.
    rows and after compaction, of the first Count after a Set, and of the
    write rate through ``/import``; every answer equal to the numpy
    oracle, which takes every write;
+11d. the cache phase (``phase_cache``): the result cache at the server's
+   default (on); steps 5-11c pass ``?nocache=1`` on every query, so that
+   their repeats launch their kernels.  The 16 coalesced trees twice, the
+   second round all hits with no K2, K3, K3-kinds, K4 or K5 launch; a Set
+   on f row 1 (a pending delta) and then a compaction each make every
+   Count over field f miss and relaunch while Counts over g alone hit;
+   ``CACHE_FLIGHT`` concurrent identical cold Counts make one fill and at
+   most one launch; a Shift Count, MinRow/MaxRow, Store and ClearRow at
+   full width against the oracle; host-clock times of warm hits against
+   ``?nocache=1`` misses of a Count, a TopN, a GroupBy and a Shift Count;
 12. K3 timing on the inputs of one real flush of step 7, K2 timing on
    step 5's pools, K4 on the fused TopN's inputs and K5 on one shard's
    GroupBy level-1 inputs, both recorded from step 9, K6 on a range
@@ -220,6 +231,10 @@ INGEST_SETS = 30  # Set-then-Count samples
 INGEST_BATCHES = 10  # timed /import batches...
 INGEST_BATCH_BITS = 100_000  # ...of this many bits each
 OVERLAY_LIVE = 1 / 64  # containers an overlay row of a fixed launch holds
+CACHE_RUNS = 30  # timed warm hits, and ?nocache=1 misses, per query...
+CACHE_GROUPBY_RUNS = 10  # ...but for the GroupBy's misses
+CACHE_FLIGHT = 32  # concurrent identical cold Counts
+CACHE_SHIFT = 1000  # Shift's n in the cache phase
 #: domain of tests/torch_vm_cases.py's launches in the K3 check
 K3_CASES_D = 128
 
@@ -310,8 +325,10 @@ def smi(query: str) -> str:
 
 
 def phase_header(torch) -> dict:
-    """The card: its name, memory rate, SM count and top SM clock."""
-    log(smi("name,power.limit"))
+    """The card: its name, power limit, memory rate, SM count and top SM
+    clock."""
+    line = smi("name,power.limit")
+    log(line)
     kind = torch.cuda.get_device_name(0)
     hbm = next((r for name, r in HBM_RATES if name in kind), None)
     check(hbm is not None, f"no published memory rate for {kind}")
@@ -320,7 +337,8 @@ def phase_header(torch) -> dict:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
         f"count {torch.cuda.device_count()}; {sms} SMs, max SM clock "
         f"{clk_mhz:.0f} MHz, memory {hbm / 1e12} TB/s")
-    return {"kind": kind, "hbm_rate": hbm, "sm_cycles": sms * clk_mhz * 1e6}
+    return {"kind": kind, "hbm_rate": hbm, "sm_cycles": sms * clk_mhz * 1e6,
+            "smi": line}
 
 
 KERNEL_SOURCES = ("gathered_count_and", "vm_counts", "vm_counts_kinds",
@@ -532,8 +550,13 @@ def phase_k5_check(torch, ck, bm, dev, seed: int, words: int) -> int:
 
 
 class Http:
-    def __init__(self, uri: str):
+    """A client of the smoke server.  With ``nocache`` every query carries
+    ``?nocache=1``: the phases that time a kernel or count its launches
+    skip the result cache, whose hit would launch nothing."""
+
+    def __init__(self, uri: str, nocache: bool = False):
         self.uri = uri
+        self.nocache = nocache
 
     def post(self, path: str, body: bytes,
              ctype: str = "application/json") -> tuple[int, bytes]:
@@ -547,6 +570,8 @@ class Http:
             return e.code, e.read()
 
     def query(self, pql: str, flags: str = "") -> tuple[list, float]:
+        if self.nocache:
+            flags += ("&" if "?" in flags else "?") + "nocache=1"
         t0 = time.perf_counter()
         st, body = self.post("/index/i/query" + flags, pql.encode(),
                              "text/plain")
@@ -723,7 +748,7 @@ def phase_k2_path(torch, ck, bm, containers, srv, http: Http, data: dict
     # the same Count through the API in this thread, under the
     # thread-local launch log
     with bm.dispatch_counter() as dc:
-        res = srv.api.query("i", pql0, coalesce=False)
+        res = srv.api.query("i", pql0, coalesce=False, cache=False)
     check(res == [want0], f"API {pql0} -> {res}")
     check(dc.launches == ["gathered_count_and"],
           f"API Count(Intersect) launches {dc.launches}")
@@ -731,7 +756,7 @@ def phase_k2_path(torch, ck, bm, containers, srv, http: Http, data: dict
     api_lat = []
     for _ in range(WARM_RUNS):
         t0 = time.perf_counter()
-        res = srv.api.query("i", pql0, coalesce=False)
+        res = srv.api.query("i", pql0, coalesce=False, cache=False)
         api_lat.append((time.perf_counter() - t0) * 1e3)
         check(res == [want0], f"API {pql0} -> {res}")
     api = out["queries"]["intersect_k2"]["api_ms"] = spread(api_lat)
@@ -2719,6 +2744,256 @@ def phase_k3k_fixed(torch, ck, tape, bm, kp, dev, seed: int,
                       live, pools, prog_np, gidx_np, card)
 
 
+# ------------------------------------------------------------ result cache
+
+#: the kernels a cache hit must not launch
+HIT_KERNELS = ("gathered_count_and", "vm_counts", "vm_counts_kinds",
+               "row_counts_masked", "masked_matrix_counts")
+#: Counts that read field g alone: a write to f leaves their stamps
+G_ONLY = [("and", ("g", 2), ("g", 3)), ("or", ("g", 1), ("g", 3)),
+          ("xor", ("g", 2), ("g", 1))]
+_RC_COUNTERS = ("hits", "misses", "fills", "invalidations", "flightJoins",
+                "flightServed", "entries")
+
+
+def rc_doc(http: Http) -> dict:
+    """GET /debug/resultcache."""
+    with urllib.request.urlopen(http.uri + "/debug/resultcache",
+                                timeout=600) as resp:
+        return json.loads(resp.read())
+
+
+def rc_delta(a: dict, b: dict) -> dict:
+    return {k: b[k] - a[k] for k in _RC_COUNTERS}
+
+
+def launched(k0: dict, k1: dict) -> dict:
+    """The launches between two ``launch_counts`` readings, by kernel."""
+    return {k: k1[k] - k0[k] for k in k1 if k1[k] != k0[k]}
+
+
+def shifted_words(m: np.ndarray, n: int) -> np.ndarray:
+    """Shift's per-shard semantics on uint32[shards, words] rows: every
+    bit n columns up, dropped at its shard's edge."""
+    w, b = divmod(n, 32)
+    out = np.zeros_like(m)
+    out[:, w:] = m[:, :m.shape[1] - w]
+    if b:
+        prev = np.zeros_like(out)
+        prev[:, 1:] = out[:, :-1]
+        out = (out << np.uint32(b)) | (prev >> np.uint32(32 - b))
+    return out
+
+
+def cache_round(ck, http: Http, trees: list, data: dict) -> tuple:
+    """One barrier-started round of ``trees`` (every answer equal to the
+    oracle): (the /debug/resultcache counters' deltas, the launches)."""
+    wants = [oracle(t, data) for t in trees]
+    d0, k0 = rc_doc(http), ck.launch_counts()
+    fire_rounds(http, trees, wants, 1)
+    return rc_delta(d0, rc_doc(http)), launched(k0, ck.launch_counts())
+
+
+def time_pair(http: Http, pql: str, hit_runs: int, miss_runs: int) -> dict:
+    """A warm hit against a ?nocache=1 miss of ``pql``, host clock, equal
+    answers."""
+    want, _ms = http.query(pql, "?nocache=1")
+    http.query(pql)  # fill
+    hit, miss = [], []
+    for _ in range(hit_runs):
+        res, ms = http.query(pql)
+        check(res == want, f"{pql}: a hit differs from the miss")
+        hit.append(ms)
+    for _ in range(miss_runs):
+        res, ms = http.query(pql, "?nocache=1")
+        check(res == want, f"{pql}?nocache=1 changed its answer")
+        miss.append(ms)
+    return {"pql": pql, "hit_ms": spread(hit), "miss_ms": spread(miss)}
+
+
+def phase_cache(ck, srv, data: dict, card: dict) -> dict:
+    """The result cache ([cache] enabled, the server's default) on the
+    served index, every query without ?nocache=1 unless it says so.
+
+    (a) hits: the 16 coalesced trees, twice; the second round equals the
+        oracle and launches no K2, K3, K3-kinds, K4 or K5;
+    (b) stamps: a Set on f row 1 waits in a delta plane (``delta_seq``);
+        every Count that reads field f misses and relaunches, with the
+        write in its answer, and the Counts of g alone still hit (a stamp
+        covers a (field, view) over the shards, as in the reference); a
+        compaction (``gen``) does the same with equal answers;
+    (c) single flight: ``CACHE_FLIGHT`` concurrent identical cold Counts
+        make one fill and at most one launch;
+    (d) the new calls at full width: a Shift Count (the dense fused path),
+        MinRow/MaxRow, Store and ClearRow against the oracle, Store and
+        ClearRow moving the stamps of field f;
+    (e) host-clock times of a warm hit against a ?nocache=1 miss for a
+        Count, a TopN and a GroupBy, and of a Shift Count.
+
+    Launch counts are zeroed at the start and read at the end."""
+    http = Http(srv.uri)  # the cache at the server's default: on
+    out: dict = {}
+    ck.reset_launch_counts()
+    d_start = rc_doc(http)
+    check(d_start["enabled"], "the result cache is off by default")
+
+    # (a) hits
+    miss, k_miss = cache_round(ck, http, TREES, data)
+    hit, k_hit = cache_round(ck, http, TREES, data)
+    check(miss["misses"] == len(TREES) and miss["fills"] == len(TREES),
+          f"the first round: {miss}")
+    check(k_miss.get("vm_counts", 0) > 0, f"the first round launched "
+                                          f"{k_miss}")
+    check(hit["hits"] == len(TREES) and hit["misses"] == 0,
+          f"the second round: {hit}")
+    check(not any(k_hit.get(k) for k in HIT_KERNELS),
+          f"the second round (all hits) launched {k_hit}")
+    out["hits"] = {"first": miss, "first_launches": k_miss,
+                   "second": hit, "second_launches": k_hit}
+    log(f"cache (a): {len(TREES)} trees, first round {miss} with "
+        f"launches {k_miss}; second round {hit}, launches {k_hit}; every "
+        f"answer equal to the oracle")
+
+    # (b) stamps: a pending delta, then a compaction
+    trees = TREES + G_ONLY
+    cache_round(ck, http, G_ONLY, data)
+    flat = data["f"][1].reshape(-1)
+    w = int(np.flatnonzero(~flat)[len(flat) // 2])
+    b = int(np.flatnonzero(np.unpackbits(
+        (~flat[w:w + 1]).view(np.uint8), bitorder="little"))[0])
+    res, _ms = http.query(f"Set({w * 32 + b}, f=1)")
+    check(res == [True], f"the cache phase's Set: {res}")
+    flat[w] |= np.uint32(1) << np.uint32(b)
+    out["stamps"] = {}
+    for label in ("delta", "compaction"):
+        if label == "compaction":
+            merged = compact_all()
+            check(merged["fragments"] > 0, "nothing to compact")
+        moved, k_moved = cache_round(ck, http, trees, data)
+        again, k_again = cache_round(ck, http, trees, data)
+        check(moved["misses"] == len(TREES) and moved["hits"]
+              == len(G_ONLY), f"after the {label}: {moved}")
+        check(k_moved.get("vm_counts", 0) > 0,
+              f"after the {label}: the misses launched {k_moved}")
+        check(again["hits"] == len(trees) and not any(
+            k_again.get(k) for k in HIT_KERNELS),
+            f"after the {label}, refilled: {again}, launches {k_again}")
+        out["stamps"][label] = {"moved": moved, "launches": k_moved,
+                                "again": again}
+        log(f"cache (b) {label}: the {len(TREES)} Counts over field f "
+            f"missed and relaunched ({k_moved}), the {len(G_ONLY)} over g "
+            f"alone hit: {moved}; then every one hit: {again}")
+
+    # (c) single flight
+    cold = ("and", ("f", 2), ("g", 1))
+    pql = f"Count({tree_pql(cold)})"
+    want = oracle(cold, data)
+    res, _ms = http.query(pql, "?nocache=1")  # stage the leaves once
+    check(res == [want], f"{pql}: {res}")
+    d0, k0 = rc_doc(http), ck.launch_counts()
+    bar = threading.Barrier(CACHE_FLIGHT)
+    got: list = []
+    errs: list = []
+
+    def client():
+        try:
+            bar.wait(timeout=600)
+            got.append(http.query(pql)[0])
+        except Exception as e:  # noqa: BLE001 -- reported below
+            errs.append(f"{type(e).__name__}: {e}")
+
+    ts = [threading.Thread(target=client) for _ in range(CACHE_FLIGHT)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=600)
+    check(not errs and len(got) == CACHE_FLIGHT, f"single flight: {errs}")
+    check(all(g == [want] for g in got), "single flight: a wrong answer")
+    fl = rc_delta(d0, rc_doc(http))
+    k_fl = launched(k0, ck.launch_counts())
+    check(fl["fills"] == 1 and fl["misses"] == 1
+          and fl["hits"] == CACHE_FLIGHT - 1, f"single flight: {fl}")
+    check(sum(k_fl.values()) <= 1, f"single flight launched {k_fl}")
+    out["single_flight"] = {"clients": CACHE_FLIGHT, "counters": fl,
+                            "launches": k_fl}
+    log(f"cache (c): {CACHE_FLIGHT} concurrent identical cold {pql}: "
+        f"{fl['fills']} fill, {fl['flightJoins']} flight joins, "
+        f"{fl['flightServed']} served by the flight, launches {k_fl}")
+
+    # (d) the new calls at full width
+    f1 = data["f"][1]
+    calls: dict = {}
+    spql = f"Count(Shift(Row(f=1), n={CACHE_SHIFT}))"
+    k0 = ck.launch_counts()
+    res, _ms = http.query(spql, "?nocache=1")
+    swant = popcounts(shifted_words(f1, CACHE_SHIFT))
+    check(res == [swant], f"{spql}: {res}, oracle {swant}")
+    check(not launched(k0, ck.launch_counts()),
+          f"{spql} launched a kernel on the dense fused path")
+    calls["shift"] = swant
+    rows = {r: m for r, m in data["f"].items() if m.any()}
+    g2, g3 = data["g"][2], data["g"][3]
+    for q, r, filt in (("MinRow(field=f)", min(rows), None),
+                       ("MaxRow(field=f)", max(rows), None),
+                       ("MaxRow(Row(g=2), field=f)", None, g2),
+                       ("MinRow(Row(g=3), field=f)", None, g3)):
+        if filt is not None:
+            live = [x for x in rows if popcounts(rows[x] & filt)]
+            r = max(live) if q.startswith("Max") else min(live)
+        c = popcounts(rows[r] if filt is None else rows[r] & filt)
+        res, _ms = http.query(q)
+        check(res == [{"id": r, "count": c}], f"{q}: {res}, oracle "
+                                              f"{r}: {c}")
+        calls[q] = {"id": r, "count": c}
+    probe = "Count(Row(f=2))"
+    for q, want_row, label in (
+            ("Store(Intersect(Row(f=1), Row(g=2)), f=9)", f1 & g2,
+             "store"),
+            ("ClearRow(f=9)", np.zeros_like(f1), "clearrow")):
+        http.query(probe)
+        cache_round(ck, http, G_ONLY, data)
+        d0 = rc_doc(http)
+        res, _ms = http.query(q)
+        check(res == [True], f"{q}: {res}")
+        res, _ms = http.query("Count(Row(f=9))")
+        check(res == [popcounts(want_row)], f"after {q}: {res}")
+        res, _ms = http.query(probe)
+        check(res == [popcounts(data["f"][2])], f"after {q}: {probe} {res}")
+        g_only, _k = cache_round(ck, http, G_ONLY, data)
+        dd = rc_delta(d0, rc_doc(http))
+        check(dd["misses"] >= 2 and g_only["hits"] == len(G_ONLY)
+              and g_only["misses"] == 0,
+              f"{q} moved the stamps: {dd}, the g Counts {g_only}")
+        calls[label] = {"bits": popcounts(want_row), "counters": dd}
+    out["calls"] = calls
+    log(f"cache (d): {spql} = {swant} (dense, no kernel); "
+        + "; ".join(f"{q} = {v}" for q, v in calls.items()
+                    if q.startswith(("Min", "Max")))
+        + f"; Store wrote {calls['store']['bits']} bits and ClearRow "
+          f"cleared them, each moving field f's stamps "
+          f"({calls['store']['counters']}, {calls['clearrow']['counters']})")
+
+    # (e) times
+    times = {
+        "count": time_pair(http, f"Count({tree_pql(TREES[0])})", CACHE_RUNS,
+                           CACHE_RUNS),
+        "topn": time_pair(http, "TopN(s, Row(f=1), n=10)", CACHE_RUNS,
+                          CACHE_RUNS),
+        "groupby": time_pair(http, "GroupBy(Rows(s), Rows(u))", CACHE_RUNS,
+                             CACHE_GROUPBY_RUNS),
+        "shift": time_pair(http, spql, CACHE_RUNS, CACHE_RUNS),
+    }
+    out["times"] = times
+    for label, t in times.items():
+        log(f"cache (e) {label} [{card['smi']}]: {t['pql']} warm hit "
+            f"{fmt(t['hit_ms'])}; ?nocache=1 miss {fmt(t['miss_ms'])}")
+    out["launches"] = ck.launch_counts()
+    out["debug"] = {k: v for k, v in rc_doc(http).items() if k != "top"}
+    log(f"cache phase launches: {out['launches']}; /debug/resultcache "
+        f"{out['debug']}")
+    return out
+
+
 def kernel_line(name, source, replaces, launches, err, timing) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -2765,7 +3040,12 @@ def run_paths(torch, ck, bm, kp, containers, tape, Server, roaring,
         log(f"ingest: delta planes on, budget {cfg['deltaBudgetBytes']} "
             f"bytes, compact threshold {cfg['compactThresholdBits']} bits, "
             f"compact interval {cfg['compactInterval']} s")
-        http = Http(srv.uri)
+        # the phases before the cache phase time kernels and count their
+        # launches: every query of theirs passes ?nocache=1
+        http = Http(srv.uri, nocache=True)
+        log("phases 5-11c: every query with ?nocache=1 (the result cache, "
+            "on by default, would answer their repeats with no launch); "
+            "the cache phase runs with the cache")
         check(http.post("/index/i", b'{"options": {"trackExistence": '
                                     b'true}}')[0] == 200, "create index")
         import_field(http, roaring, "f", data["f"], N_SHARDS, cpr)
@@ -2785,6 +3065,7 @@ def run_paths(torch, ck, bm, kp, containers, tape, Server, roaring,
         out["ingest"] = phase_ingest(ck, tape, containers, srv, http,
                                      roaring, data,
                                      out["kinds"].pop("data"), seed)
+        out["cache"] = phase_cache(ck, srv, data, card)
         out["k3"] = phase_k3_time(torch, ck, tape,
                                   out["coalesced"].pop("flush"), card)
         out["k2"] = phase_k2_time(torch, ck, bm, out.pop("probe"), card)
@@ -2900,6 +3181,7 @@ def main(argv: list[str] | None = None) -> int:
                     "k1_us": out["k1"]["spread_us"],
                     "kinds": out["kinds"],
                     "ingest": out["ingest"],
+                    "cache": out["cache"],
                     "k3_kinds_us": out["k3k"]["spread_us"],
                     "k3_kinds_shape": out["k3k"]["shape"],
                     "k3_kinds_all_slots_bound_ms": out["k3k"]["all_slots_bound_ms"],
@@ -2918,18 +3200,23 @@ def main(argv: list[str] | None = None) -> int:
                              ("all_slots_bound_ms", "host_plan_us")),
                             ("vm_counts_kinds_dfuse", "k3k_fixed_dfuse",
                              ("all_slots_bound_ms", "host_plan_us")))}}))
+    # every kernel's launches on its own paths, plus the cache phase's
+    # misses
+    cache_k = out["cache"]["launches"]
     log(json.dumps({"kernels": [
         kernel_line("gathered_count_and",
                     "pilosa_tpu_torch/ops/csrc/gathered_count_and.cu",
                     "pilosa_tpu/ops/pallas_kernels.py:244",
-                    out["launches"]["gathered_count_and"],
+                    out["launches"]["gathered_count_and"]
+                    + cache_k["gathered_count_and"],
                     max(k2_err, out["k2"]["max_abs_err"]), out["k2"]),
         # K3 and K3-kinds: launches on their own paths plus the ingest
         # phase's dfuse launches
         kernel_line("vm_counts", "pilosa_tpu_torch/ops/csrc/vm_counts.cu",
                     "pilosa_tpu/ops/pallas_kernels.py:454",
                     out["coalesced"]["k3_launches"]
-                    + out["ingest"]["k3"]["launches"],
+                    + out["ingest"]["k3"]["launches"]
+                    + cache_k["vm_counts"],
                     max(k3_err, out["k3"]["max_abs_err"],
                         out["k3_fixed"]["max_abs_err"],
                         out["k3_fixed16"]["max_abs_err"],
@@ -2938,27 +3225,32 @@ def main(argv: list[str] | None = None) -> int:
                     "pilosa_tpu_torch/ops/csrc/vm_counts_kinds.cu",
                     "pilosa_tpu/ops/pallas_kernels.py:489",
                     out["kinds"]["launches"]["vm_counts_kinds"]
-                    + out["ingest"]["k3_kinds"]["launches"],
+                    + out["ingest"]["k3_kinds"]["launches"]
+                    + cache_k["vm_counts_kinds"],
                     max(k3k_err, out["k3k"]["max_abs_err"],
                         out["k3k_fixed"]["max_abs_err"],
                         out["k3k_fixed_dfuse"]["max_abs_err"]), out["k3k"]),
         kernel_line("row_counts_masked",
                     "pilosa_tpu_torch/ops/csrc/row_counts_masked.cu",
                     "pilosa_tpu/ops/pallas_kernels.py:145",
-                    out["scans"]["launches"]["row_counts_masked"],
+                    out["scans"]["launches"]["row_counts_masked"]
+                    + cache_k["row_counts_masked"],
                     max(k4_err, out["k4"]["max_abs_err"]), out["k4"]),
         kernel_line("masked_matrix_counts",
                     "pilosa_tpu_torch/ops/csrc/masked_matrix_counts.cu",
                     "pilosa_tpu/ops/pallas_kernels.py:652",
-                    out["scans"]["launches"]["masked_matrix_counts"],
+                    out["scans"]["launches"]["masked_matrix_counts"]
+                    + cache_k["masked_matrix_counts"],
                     max(k5_err, out["k5"]["max_abs_err"]), out["k5"]),
         kernel_line("bsi_compare", "pilosa_tpu_torch/ops/csrc/bsi_compare.cu",
                     "pilosa_tpu/ops/pallas_kernels.py:726",
-                    out["bsi"]["launches"]["bsi_compare"],
+                    out["bsi"]["launches"]["bsi_compare"]
+                    + cache_k["bsi_compare"],
                     max(k6_err, out["k6"]["max_abs_err"]), out["k6"]),
         kernel_line("count_and", "pilosa_tpu_torch/ops/csrc/count_and.cu",
                     "pilosa_tpu/ops/pallas_kernels.py:194",
-                    out["bsi"]["launches"]["count_and"],
+                    out["bsi"]["launches"]["count_and"]
+                    + cache_k["count_and"],
                     max(k1_err, out["k1"]["max_abs_err"]), out["k1"]),
     ]}))
     log(json.dumps({"ok": True, "device": {

@@ -39,11 +39,11 @@ class API:
     def query(self, index: str, pql, shards=None,
               exclude_columns: bool = False, containers: bool = True,
               coalesce: bool = True, vm: bool = True,
-              delta: bool = True) -> list:
+              delta: bool = True, cache: bool = True) -> list:
         opt = ExecOptions(exclude_columns=exclude_columns,
                           shards=None if shards is None else list(shards),
                           coalesce=coalesce, containers=containers, vm=vm,
-                          delta=delta)
+                          delta=delta, cache=cache)
         return self.executor.execute(index, pql, opt=opt)
 
     def index(self, name: str):
@@ -82,7 +82,8 @@ class API:
         return idx.create_field(name, options)
 
     def import_bits(self, index: str, field: str, rows, cols,
-                    row_keys=None, col_keys=None, clear: bool = False) -> None:
+                    timestamps=None, row_keys=None, col_keys=None,
+                    clear: bool = False) -> None:
         """Bulk bit import; imported columns join the existence field
         (pilosa_tpu/api.py:269)."""
         if row_keys or col_keys:
@@ -91,7 +92,7 @@ class API:
         f = self.field(index, field)
         rows = np.asarray(rows if len(rows) else [], dtype=np.int64)
         cols = np.asarray(cols if len(cols) else [], dtype=np.int64)
-        f.import_bits(rows, cols, clear=clear)
+        f.import_bits(rows, cols, timestamps, clear=clear)
         if not clear:
             idx.import_existence(cols)
 

@@ -4,10 +4,12 @@
         [--no-ragged] [--ragged-max-tape N] [--ragged-max-leaves N]
         [--no-ingest-delta] [--ingest-delta-budget-bytes N]
         [--ingest-compact-threshold-bits N] [--ingest-compact-interval S]
+        [--no-result-cache] [--cache-budget-bytes N]
+        [--cache-max-entry-bytes N] [--cache-ttl S]
 
 Serves the data directory over HTTP until SIGINT or SIGTERM.  The node
-runs on ``cuda`` unless ``--device cpu`` is given.  The ragged and ingest
-flags are the reference's (pilosa_tpu/cmd.py:72-85, 133-150).
+runs on ``cuda`` unless ``--device cpu`` is given.  The ragged, ingest
+and cache flags are the reference's (pilosa_tpu/cmd.py:59-85, 133-150).
 """
 
 from __future__ import annotations
@@ -33,6 +35,10 @@ def _serve(args) -> int:
                  ingest_compact_threshold_bits=(
                      args.ingest_compact_threshold_bits),
                  ingest_compact_interval=args.ingest_compact_interval,
+                 cache_enabled=not args.no_result_cache,
+                 cache_budget_bytes=args.cache_budget_bytes,
+                 cache_max_entry_bytes=args.cache_max_entry_bytes,
+                 cache_ttl=args.cache_ttl,
                  **ragged)
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
@@ -81,5 +87,18 @@ def main(argv: list[str] | None = None) -> int:
     ps.add_argument("--ingest-compact-interval", type=float,
                     help="compactor scan period in seconds, also the age "
                          "bound of a small delta")
+    ps.add_argument("--no-result-cache", action="store_true",
+                    help="disable the generation-stamped query result "
+                         "cache ([cache] enabled=false): every read "
+                         "executes")
+    ps.add_argument("--cache-budget-bytes", type=int,
+                    help="host-memory budget for cached query results "
+                         "([cache] budget-bytes)")
+    ps.add_argument("--cache-max-entry-bytes", type=int,
+                    help="largest single cacheable result "
+                         "([cache] max-entry-bytes)")
+    ps.add_argument("--cache-ttl", type=float,
+                    help="seconds before a cached result ages out even "
+                         "unmutated ([cache] ttl; 0 = generations only)")
     args = p.parse_args(argv)
     return _serve(args)

@@ -349,11 +349,21 @@ class Field:
         view = self.view(VIEW_STANDARD)
         return None if view is None else view.fragment(shard)
 
-    def import_bits(self, rows, cols, clear: bool = False) -> None:
+    def import_bits(self, rows, cols, timestamps=None,
+                    clear: bool = False) -> None:
         """Bulk import of (row, col) bits: one ``import_positions`` per
-        shard (pilosa_tpu/models/field.py:1566)."""
+        shard (pilosa_tpu/models/field.py:1566).  ``timestamps`` are
+        length-checked; with no time quantum there is no time view to
+        add and only the standard view is written
+        (pilosa_tpu/models/field.py:1581-1582, 1650-1663)."""
         if len(rows) != len(cols):
             raise ValueError("rows and columns length mismatch")
+        if timestamps is not None and len(timestamps) != len(rows):
+            raise ValueError("timestamps length mismatch")
+        if (timestamps is not None and self.options.time_quantum
+                and any(t is not None for t in timestamps)):
+            raise ValueError("time views are not supported by this port "
+                             "yet")
         max_row = ((1 << 63) - SHARD_WIDTH) // SHARD_WIDTH
         try:
             rows_np = np.asarray(rows, dtype=np.int64)

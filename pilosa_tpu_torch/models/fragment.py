@@ -462,6 +462,55 @@ class Fragment:
             self._gen += 1
             self._maybe_snapshot()
 
+    def clear_row(self, row: int) -> bool:
+        """Remove every bit of a row (ClearRow; pilosa_tpu/models/
+        fragment.py:722): a pending delta merges first, so that the WAL
+        order is the in-memory one, then one bulk record of clears."""
+        with self._lock:
+            self._flush_delta_locked()
+            arr = self._rows.pop(row, None)
+            if arr is None or not arr.any():
+                return False
+            pos = (row * self.width
+                   + bm.unpack_positions(arr)).astype(np.uint64)
+            self._wal_append(_WAL_BULK_HDR.pack(_WAL_BULK, 0, len(pos))
+                             + pos.tobytes())
+            self._op_n += len(pos)
+            self._gen += 1
+            self._maybe_snapshot()
+            return True
+
+    def set_row(self, row: int, words: np.ndarray) -> bool:
+        """Replace a row wholesale (Store; pilosa_tpu/models/
+        fragment.py:743): one bulk record of the new row's bits and of
+        the old bits it drops."""
+        with self._lock:
+            self._flush_delta_locked()
+            old = self._rows.get(row)
+            new = np.asarray(words, dtype=np.uint32).copy()
+            if old is None and not new.any():
+                return False
+            if old is not None and np.array_equal(old, new):
+                return False
+            self._rows[row] = new
+            sets = (row * self.width
+                    + bm.unpack_positions(new)).astype(np.uint64)
+            clears = np.empty(0, dtype=np.uint64)
+            if old is not None:
+                clears = (row * self.width + bm.unpack_positions(
+                    old & ~new)).astype(np.uint64)
+            self._wal_append(
+                _WAL_BULK_HDR.pack(_WAL_BULK, len(sets), len(clears))
+                + sets.tobytes() + clears.tobytes())
+            self._op_n += len(sets) + len(clears)
+            self._gen += 1
+            self._maybe_snapshot()
+            return True
+
+    def row_count(self, row: int) -> int:
+        """The effective row's bit count."""
+        return int(np.bitwise_count(self.row(row)).sum())
+
     # ------------------------------------------------- roaring interchange
 
     def import_roaring(self, data: bytes, clear: bool = False) -> None:

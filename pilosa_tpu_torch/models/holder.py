@@ -10,6 +10,7 @@ every field places its row stacks and container pools.
 from __future__ import annotations
 
 import fcntl
+import itertools
 import os
 import threading
 import uuid
@@ -22,9 +23,15 @@ from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
 
 class Holder:
+    #: process-unique identity: result-cache keys carry it, so that two
+    #: holders in one process never share entries
+    #: (pilosa_tpu/models/holder.py:20-29)
+    _UID = itertools.count(1)
+
     def __init__(self, path: str | None = None,
                  device: str | torch.device | None = None):
         self.device = devmod.resolve(device)
+        self.uid = next(Holder._UID)
         self.path = path
         self.indexes: dict[str, Index] = {}
         self._lock = threading.RLock()

@@ -179,6 +179,35 @@ def b_not(a: torch.Tensor, existence: torch.Tensor) -> torch.Tensor:
     return ~a & existence
 
 
+def shift_words(a: torch.Tensor, n: int) -> torch.Tensor:
+    """The one shift body (pilosa_tpu/ops/bitmap.py:313): every bit moves
+    ``n`` columns up along the last axis and drops at the shard edge.
+    The bits carried into a word from the one below are masked after
+    the arithmetic ``>>``, so a sign bit never smears."""
+    if n == 0:
+        return a
+    w, s = n // WORD_BITS, n % WORD_BITS
+    nw = a.shape[-1]
+    if w >= nw:
+        return torch.zeros_like(a)
+    # words move up by w: out_word[i] = a[i - w]
+    shifted = torch.nn.functional.pad(a, (w, 0))[..., :nw]
+    if s == 0:
+        return shifted
+    prev = torch.nn.functional.pad(shifted, (1, 0))[..., :nw]
+    carry = (prev >> (WORD_BITS - s)) & ((1 << s) - 1)
+    return (shifted << s) | carry
+
+
+def b_shift(a: torch.Tensor, n: int = 1) -> torch.Tensor:
+    """Shift all bits toward higher columns by ``n`` (roaring.Shift); bits
+    past the shard width drop, as in per-shard Shift execution."""
+    if n < 0:
+        raise ValueError("shift distance must be non-negative")
+    note_dispatch("b_shift")
+    return shift_words(a, n)
+
+
 # ---------------------------------------------------------------------------
 # Counting
 # ---------------------------------------------------------------------------

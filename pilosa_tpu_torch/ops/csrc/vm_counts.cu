@@ -86,6 +86,8 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kContainerWords = 2048;          // uint32 words
@@ -304,10 +306,19 @@ vm_counts_kernel(const int4* __restrict__ pool,
 
 static_assert(kVecs % (2 * kThreads) == 0, "whole int4 vectors per thread");
 
+// The kernel's dynamic shared memory limit is one attribute of the
+// function, shared by every host thread: set by one launch and read by
+// another's, it refuses the larger launch (cudaErrorInvalidValue).  The
+// coalescer flushes its buckets on their leaders' threads, so launches
+// of different sizes race; each sets the limit and enqueues under this
+// lock.  The launch is asynchronous, so the lock is held for microseconds.
+std::mutex launch_mutex;
+
 template <int kVec>
 int launch(const void* pool, const void* gidx, const void* meta, void* out,
            int n_q, int tape_len, int slots, int domain, int n_groups,
            int smem, void* stream) {
+  std::lock_guard<std::mutex> hold(launch_mutex);
   cudaError_t err = cudaFuncSetAttribute(
       vm_counts_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);

@@ -82,6 +82,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kContainerWords = 2048;          // uint32 words
@@ -327,6 +329,9 @@ int smem_bytes(int tape_len, int slots) {
          (tape_len + 2 * slots) * static_cast<int>(sizeof(int));
 }
 
+// set-and-launch lock of the shared memory attribute (vm_counts.cu)
+std::mutex launch_mutex;
+
 }  // namespace
 
 extern "C" int vm_counts_kinds_launch(
@@ -341,6 +346,9 @@ extern "C" int vm_counts_kinds_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int smem = smem_bytes(tape_len, slots);
+  // the shared memory limit is one attribute of the function for every
+  // host thread: set it and enqueue under one lock (vm_counts.cu)
+  std::lock_guard<std::mutex> hold(launch_mutex);
   cudaError_t err = cudaFuncSetAttribute(
       vm_counts_kinds_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);

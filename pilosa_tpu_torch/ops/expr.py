@@ -7,11 +7,14 @@ tuple whose leaves are slot indices into the operand tuple:
     ("and"|"or"|"xor"|"andnot", c, ...)   left-fold over children
     ("not", ("leaf", i_exist), child)     exist & ~child
     ("dfuse", child, set_c, clear_c)      (child & ~clear) | set
+    ("shift", n, child)                   every bit n columns up
 
 ``dfuse`` is the streaming-ingest delta fusion (pilosa_tpu_torch.ingest):
 the child is a base row stack, the set and clear leaves a fragment delta
-plane's overlays (pilosa_tpu/ops/expr.py:20-25).  (``shift`` is not part
-of the port yet.)
+plane's overlays (pilosa_tpu/ops/expr.py:20-25).  ``shift`` moves each
+row's bits up by a static ``n`` and drops them at the shard edge
+(``bm.shift_words``); it is not tape-eligible, so a shift-carrying Count
+runs this dense program.
 
 ``evaluate(shape, leaves)`` returns the int32 word stack,
 ``evaluate(shape, leaves, counts=True)`` the int32 per-row popcounts
@@ -61,6 +64,11 @@ def _validate(shape: tuple, n_leaves: int) -> None:
         for c in shape[1:]:
             _validate(c, n_leaves)
         return
+    if kind == "shift":
+        if shape[1] < 0:
+            raise ValueError("shift distance must be non-negative")
+        _validate(shape[2], n_leaves)
+        return
     raise ValueError(f"unknown expression node: {kind!r}")
 
 
@@ -92,6 +100,9 @@ def _build(shape: tuple) -> Callable[[tuple], torch.Tensor]:
     if kind == "dfuse":
         kid, dset, dclear = (_build(c) for c in shape[1:])
         return lambda leaves: (kid(leaves) & ~dclear(leaves)) | dset(leaves)
+    if kind == "shift":
+        n, kid = shape[1], _build(shape[2])
+        return lambda leaves: bm.shift_words(kid(leaves), n)
     exist = _build(shape[1])
     kid = _build(shape[2])
     return lambda leaves: exist(leaves) & ~kid(leaves)
@@ -115,6 +126,8 @@ def _host_tree(shape: tuple, leaves: tuple) -> np.ndarray:
         for c in shape[2:]:
             out = fold(out, _host_tree(c, leaves))
         return out
+    if kind == "shift":
+        return _host_shift(_host_tree(shape[2], leaves), shape[1])
     if kind == "dfuse":
         return np.bitwise_or(
             np.bitwise_and(_host_tree(shape[1], leaves),
@@ -122,6 +135,23 @@ def _host_tree(shape: tuple, leaves: tuple) -> np.ndarray:
             _host_tree(shape[2], leaves))
     return np.bitwise_and(_host_tree(shape[1], leaves),
                           np.bitwise_not(_host_tree(shape[2], leaves)))
+
+
+def _host_shift(a: np.ndarray, n: int) -> np.ndarray:
+    """numpy twin of ``bm.shift_words`` over uint32 words
+    (pilosa_tpu/ops/bitmap.py:313)."""
+    if n == 0:
+        return a
+    w, s = n // bm.WORD_BITS, n % bm.WORD_BITS
+    nw = a.shape[-1]
+    if w >= nw:
+        return np.zeros_like(a)
+    pad = [(0, 0)] * (a.ndim - 1)
+    shifted = np.pad(a, pad + [(w, 0)])[..., :nw]
+    if s == 0:
+        return shifted
+    prev = np.pad(shifted, pad + [(1, 0)])[..., :nw]
+    return (shifted << np.uint32(s)) | (prev >> np.uint32(bm.WORD_BITS - s))
 
 
 def _host_counts(shape: tuple, leaves: tuple) -> np.ndarray:

@@ -24,8 +24,12 @@ program, a bucket of one shape runs the fused program over stacked
 operands, and a mixed bucket runs the tape interpreter.  The routes are
 tried in the reference's order (VM, lone, same shape, tape).
 
-Not part of the port yet: deadlines, the result cache, the flight
-recorder, stats, tracing, the residency OOM retry and the mesh.
+Every member of a flushed batch fills its own result-cache key with the
+stamp the executor took before staging (``cache_fill``), so a Count
+that K3 or K3-kinds answered fills the key the direct path probes.
+
+Not part of the port yet: deadlines, the flight recorder, stats,
+tracing, tenants, the residency OOM retry and the mesh.
 """
 
 from __future__ import annotations
@@ -154,15 +158,20 @@ class Coalescer:
         return (idx.name, shape, shards), None
 
     def count(self, executor, idx, child, shards: tuple[int, ...],
-              use_delta: bool = True, use_vm: bool = True) -> int:
+              use_delta: bool = True, use_vm: bool = True,
+              cache_fill=None) -> int:
         """One Count(tree) through the batching window -> total.
         Staging runs on the caller's thread, so a staging error belongs
-        to this query alone.  ``use_delta=False`` (``?nodelta=1``) goes
-        to staging.  Bucket keys need nothing more for deltas: a pending
-        overlay puts ``dfuse`` nodes in the staged shape, which the tape
-        compiler lowers to two more instructions, so the query lands in
-        the size class its overlay costs (pilosa_tpu/parallel/
-        coalescer.py:264-271)."""
+        to this query alone.  ``cache_fill`` is the executor's result-
+        cache probe ``(cache, key, stamp)`` for this query, filled with
+        the total once the batch resolves; a member whose batch failed
+        raises from its future and fills nothing (pilosa_tpu/parallel/
+        coalescer.py:250-256, 369-371).  ``use_delta=False``
+        (``?nodelta=1``) goes to staging.  Bucket keys need nothing more
+        for deltas: a pending overlay puts ``dfuse`` nodes in the staged
+        shape, which the tape compiler lowers to two more instructions,
+        so the query lands in the size class its overlay costs
+        (pilosa_tpu/parallel/coalescer.py:264-271)."""
         vmstage = None
         if self.vm and self.ragged and use_vm:
             vmstage = _containers.stage_vm(
@@ -205,8 +214,13 @@ class Coalescer:
         if entry.vm is not None:
             # per-domain-slot counts; pad slots gather the zero row and
             # the domain already concatenates the per-shard walks
-            return int(arr.sum())
-        return int(arr[:len(shards)].sum())
+            total = int(arr.sum())
+        else:
+            total = int(arr[:len(shards)].sum())
+        if cache_fill is not None:
+            rc, key, gens = cache_fill
+            rc.put(key, gens, total, 32)
+        return total
 
     # ------------------------------------------------------------- flush
 

@@ -52,9 +52,30 @@ merge pending deltas first.  Range leaves stay on the base path (BSI
 views take no deltas).  ``ExecOptions.delta=False`` (``?nodelta=1``)
 compacts the touched rows' deltas up front and reads pure base state.
 
-Not part of the port yet: the result cache, the cluster fan-out, string
-keys, attributes, time views and the other calls (Shift, Store,
-ClearRow, MinRow/MaxRow).
+``Shift`` moves a row's bits up within each shard (a ``shift`` node of
+ops/expr, so a shift-carrying Count takes the dense program: the tape
+and the container engine decline it).  ``Store`` and ``ClearRow`` write
+whole rows with the reference's WAL records; ``MinRow``/``MaxRow`` read
+the TopN scan's row counts (executor.py:1570, 2539-2560, 2904-2958).
+``Range`` is the legacy name of ``Row``, served per shard.
+
+The result cache (runtime/resultcache.py; executor.py:1214-1402): a
+fused Row, Count, TopN (MinRow/MaxRow too) or GroupBy probes it before
+reading any fragment data, under a key of the tree's signature and the
+shard tuple, stamped with every participating (field, view)'s
+``(count, sum_gen, sum_delta_seq, sum_uid, max_uid)``; a hit launches
+nothing, a miss computes and fills with the stamp taken before the
+read.  A Count probes before the coalescer, so a hit never takes a
+batch slot, and the coalescer fills each member's key.  Whole-matrix
+reads (TopN, GroupBy) merge their fields' deltas before stamping.
+``?nocache=1`` (``ExecOptions.cache``) and ``?nodelta=1`` skip the
+probe.  Left out with the flight recorder: ``_rc_mark_hit`` and the
+``cacheKey`` stamp; with deadlines: ``_rc_wait`` (a miss waits on an
+open flight for ``resultcache.FLIGHT_WAIT_S``); with the cluster: the
+``count_shards`` probe and ``_rc_fill_ok`` (no partial results).
+
+Not part of the port yet: the cluster fan-out, string keys, attributes
+(``SetRowAttrs``/``SetColumnAttrs``) and time views.
 """
 
 from __future__ import annotations
@@ -63,6 +84,7 @@ import bisect
 import heapq
 import math
 from dataclasses import dataclass, replace
+from operator import itemgetter as _itemgetter
 
 import numpy as np
 import torch
@@ -78,10 +100,17 @@ from pilosa_tpu_torch.ops import containers, expr
 from pilosa_tpu_torch.parallel.results import (FieldRow, GroupCount, Pair,
                                                ValCount, sort_pairs)
 from pilosa_tpu_torch.pql import Call, Query, parse
+from pilosa_tpu_torch.runtime import resultcache
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
 _SET_OPS = {"Union": "or", "Intersect": "and", "Difference": "andnot",
             "Xor": "xor"}
+
+#: The placement token of a result-cache key: what the reference's
+#: ``meshexec.placement_token`` gives with the mesh off
+#: (pilosa_tpu/parallel/meshexec.py:250-251).  One card has no mesh; the
+#: token stays in the key so that a mesh placement can join it later.
+_PLACEMENT = "dev"
 
 
 @dataclass
@@ -100,6 +129,8 @@ class ExecOptions:
     # ?nodelta=1: compact the touched fragments' pending ingest deltas up
     # front and read pure base state
     delta: bool = True
+    # ?nocache=1: skip the result cache (no probe, no fill)
+    cache: bool = True
 
 
 class ExecutionError(ValueError):
@@ -148,12 +179,15 @@ class Executor:
             return self._execute_set(idx, call)
         if name == "Clear":
             return self._execute_clear(idx, call)
+        if name == "ClearRow":
+            return self._execute_clear_row(idx, call)
+        if name == "Store":
+            return self._execute_store(idx, call, shards, opt)
+        if name in ("SetRowAttrs", "SetColumnAttrs"):
+            raise ExecutionError(f"{name}() is not supported by this port "
+                                 f"yet")
         if name == "Count":
             return self._execute_count(idx, call, shards, opt)
-        if name == "Options":
-            return self._execute_options(idx, call, shards, opt)
-        if name in ("Row", "Not", *_SET_OPS):
-            return self._execute_bitmap_call(idx, call, shards, opt)
         if name == "TopN":
             return self._execute_topn(idx, call, shards, opt)
         if name == "Rows":
@@ -162,7 +196,14 @@ class Executor:
             return self._execute_group_by(idx, call, shards, opt)
         if name in ("Sum", "Min", "Max"):
             return self._execute_aggregate(idx, call, shards, opt)
-        raise ExecutionError(f"{name}() is not supported by this port yet")
+        if name in ("MinRow", "MaxRow"):
+            return self._execute_extreme_row(idx, call, shards, opt)
+        if name == "Options":
+            return self._execute_options(idx, call, shards, opt)
+        # bitmap calls: Row/Range/Union/Intersect/Difference/Xor/Not/Shift,
+        # and any other name, which the per-shard walk refuses as the
+        # reference does (executor.py:477, 1581-1582)
+        return self._execute_bitmap_call(idx, call, shards, opt)
 
     def _check_keys(self, idx, call: Call) -> None:
         """String keys are not part of the port: refuse them with the
@@ -220,7 +261,7 @@ class Executor:
     def _fused_supported(self, idx, call: Call) -> bool:
         """True when the tree evaluates over all shards at once: plain
         standard-view Row leaves of set fields and condition rows of int
-        fields, combined with Union/Intersect/Difference/Xor/Not."""
+        fields, combined with Union/Intersect/Difference/Xor/Not/Shift."""
         name = call.name
         if name == "Row":
             cond = call.condition_arg()
@@ -252,6 +293,11 @@ class Executor:
         if name == "Not":
             return (len(call.children) == 1
                     and idx.existence_field() is not None
+                    and self._fused_supported(idx, call.children[0]))
+        if name == "Shift":
+            n = call.int_arg("n")
+            return (len(call.children) == 1
+                    and (n is None or n >= 0)
                     and self._fused_supported(idx, call.children[0]))
         if name in _SET_OPS:
             return bool(call.children) and all(
@@ -313,6 +359,13 @@ class Executor:
             return ("not", exist,
                     self._fused_shape(idx, call.children[0], shards, leaves,
                                       use_delta))
+        if name == "Shift":
+            # bits move within each shard's row and drop at its edge, as
+            # on the per-shard path
+            n = call.int_arg("n")
+            return ("shift", 1 if n is None else n,
+                    self._fused_shape(idx, call.children[0], shards, leaves,
+                                      use_delta))
         raise ExecutionError(f"unsupported fused call: {name}")
 
     def _fused_expr(self, idx, call: Call, shards: tuple[int, ...],
@@ -328,6 +381,110 @@ class Executor:
         shape, leaves = self._fused_expr(idx, call, shards, use_delta)
         return expr.evaluate(shape, leaves)
 
+    # ------------------------------------------------------- result cache
+
+    @staticmethod
+    def _rc_collect_gens(f, view_name: str, shards: tuple[int, ...],
+                         out: dict) -> None:
+        """The stamp of one (field, view) over the shard set, memoized in
+        ``out`` (executor.py:1214-1276): ``(count, sum_gen, sum_seq,
+        sum_uid, max_uid)`` of its fragments.  A surviving fragment's
+        ``_gen`` and ``_delta_seq`` only grow and a new fragment's uid
+        exceeds every earlier one, so any creation, deletion or write
+        moves at least one component, and an unchanged view reproduces
+        the stamp exactly."""
+        mkey = (id(f), view_name)
+        if mkey in out:
+            return
+        view = None if f is None else f.view(view_name)
+        if view is None:
+            out[mkey] = 0
+            return
+        frags = view.fragments
+        fs = None
+        if len(shards) > 1:
+            try:
+                fs = _itemgetter(*shards)(frags)
+            except KeyError:
+                fs = None
+        if fs is None:
+            g = frags.get
+            fs = [fr for s in shards if (fr := g(s)) is not None]
+        sg = sq = su = mu = 0
+        for fr in fs:
+            u = fr._uid
+            sg += fr._gen
+            sq += fr._delta_seq
+            su += u
+            if u > mu:
+                mu = u
+        out[mkey] = (len(fs), sg, sq, su, mu)
+
+    def _rc_sig(self, idx, call: Call, shards: tuple[int, ...],
+                gens_out: dict):
+        """The canonical identity of a fused-supported tree: its shape
+        with the leaves' (field, row) or (field, op, value) at the slots
+        (executor.py:1278-1328).  Collects each participating view's
+        stamp into ``gens_out`` before any fragment data is read."""
+        name = call.name
+        if name == "Row":
+            cond = call.condition_arg()
+            if cond is not None:
+                fname, condition = cond
+                f = idx.field(fname)
+                self._rc_collect_gens(f, f.bsi_view_name, shards, gens_out)
+                value = (condition.int_slice_value()
+                         if condition.op == "><" else condition.value)
+                if isinstance(value, list):
+                    value = tuple(value)
+                return ("range", fname, condition.op, value)
+            fname = call.field_arg()
+            f = idx.field(fname)
+            self._rc_collect_gens(f, VIEW_STANDARD, shards, gens_out)
+            return ("row", fname, call.args[fname])
+        if name in _SET_OPS:
+            return (name, *(self._rc_sig(idx, c, shards, gens_out)
+                            for c in call.children))
+        if name == "Not":
+            ef = idx.existence_field()
+            self._rc_collect_gens(ef, VIEW_STANDARD, shards, gens_out)
+            return ("not", ef.name,
+                    self._rc_sig(idx, call.children[0], shards, gens_out))
+        if name == "Shift":
+            n = call.int_arg("n")
+            return ("shift", 1 if n is None else n,
+                    self._rc_sig(idx, call.children[0], shards, gens_out))
+        raise ExecutionError(f"uncacheable call: {name}")
+
+    def _rc_probe(self, idx, kind: str, shards: tuple[int, ...],
+                  opt: ExecOptions | None, tree: Call | None = None,
+                  extra=None, gen_fields=()):
+        """(cache, key, stamp) for one fused read, or None when the cache
+        is off, the request says ``?nocache=1`` or ``?nodelta=1`` (whose
+        contract is a real pure-base read), or the tree has no signature
+        (executor.py:1330-1383).  ``extra`` joins the key; ``gen_fields``
+        are (field, view) pairs read whole beyond the tree's leaves,
+        whose pending deltas merge BEFORE the stamp is taken, as the read
+        would merge them anyway.  The stamp lists the views' aggregates
+        in traversal order, so a fill and a probe line up slot by slot."""
+        rc = resultcache.cache()
+        if not rc.enabled or (opt is not None
+                              and not (opt.cache and opt.delta)):
+            return None
+        gens_out: dict = {}
+        try:
+            sig = (None if tree is None
+                   else self._rc_sig(idx, tree, shards, gens_out))
+            for f, vn in gen_fields:
+                f.flush_deltas(shards)
+                self._rc_collect_gens(f, vn, shards, gens_out)
+        except (ExecutionError, ValueError, KeyError, TypeError,
+                AttributeError):
+            return None
+        key = resultcache.Key((self.holder.uid, idx.name, kind, sig, extra,
+                               shards, _PLACEMENT))
+        return rc, key, tuple(gens_out.values())
+
     @staticmethod
     def _local_map(fn, shards) -> list:
         """``fn`` over this node's shards, in order, on the calling
@@ -340,7 +497,7 @@ class Executor:
     def _validate_call_fields(self, idx, call: Call) -> None:
         """Check referenced fields exist even when the shard set is
         empty."""
-        if call.name == "Row":
+        if call.name in ("Row", "Range"):
             cond = call.condition_arg()
             self._field(idx, call.field_arg() if cond is None else cond[0])
         for child in call.children:
@@ -352,15 +509,7 @@ class Executor:
         shards = self._target_shards(idx, shards, opt)
         row = Row()
         if self._fuse_eligible(idx, shards, call):
-            g = tuple(shards)
-            plan = containers.plan_fused(idx, call, g, opt, counts=False)
-            if plan is not None:
-                partials = plan.row_words()
-            else:
-                stack = bm.to_numpy(self._fused_eval(idx, call, g,
-                                                     opt.delta))
-                partials = [(s, stack[i].copy()) for i, s in enumerate(g)
-                            if stack[i].any()]
+            partials = self._fused_row_words(idx, call, tuple(shards), opt)
         else:
             partials = []
             for s in shards:
@@ -371,6 +520,31 @@ class Executor:
             if words.any():
                 row.segments[shard] = words
         return row
+
+    def _fused_row_words(self, idx, call: Call, g: tuple[int, ...],
+                         opt: ExecOptions) -> list:
+        """A fused Row tree's non-empty (shard, words) segments: from the
+        result cache, else the container engine or the dense stacks,
+        filling the cache (executor.py:1405-1453).  Copies both ways:
+        cached words never alias a Row a caller may change."""
+        probe = self._rc_probe(idx, "row", g, opt, tree=call)
+        if probe is not None:
+            rc, key, gens = probe
+            hit, val = rc.get(key, gens)
+            if hit:
+                return [(s, w.copy()) for s, w in val]
+        plan = containers.plan_fused(idx, call, g, opt, counts=False)
+        if plan is not None:
+            partials = plan.row_words()
+        else:
+            stack = bm.to_numpy(self._fused_eval(idx, call, g, opt.delta))
+            partials = [(s, stack[i].copy()) for i, s in enumerate(g)
+                        if stack[i].any()]
+        if probe is not None:
+            value = [(s, w.copy()) for s, w in partials]
+            rc.put(key, gens, value,
+                   sum(w.nbytes for _, w in value) + 32 * len(value))
+        return partials
 
     def _field_row_words(self, f, row_id: int, shard: int,
                          use_delta: bool = True):
@@ -390,19 +564,22 @@ class Executor:
         """Evaluate a bitmap tree on one shard -> int32 words on the
         device, or None for empty (executor.py:1498)."""
         name = call.name
-        if name == "Row":
+        if name in ("Row", "Range"):
             cond = call.condition_arg()
             if cond is not None:
                 return self._range_words_shard(idx, cond, shard)
-            if "from" in call.args or "to" in call.args:
-                raise ExecutionError("Row(): time ranges are not supported "
-                                     "by this port yet")
             fname = call.field_arg()
             f = self._field(idx, fname)
             row_id = self._row_id(call, fname)
             if row_id is None:
                 raise ExecutionError(
                     f"Row(): field {fname!r} requires an integer row")
+            if "from" in call.args or "to" in call.args:
+                if not f.options.time_quantum:
+                    raise ExecutionError(f"field {fname!r} does not support "
+                                         f"time-range queries")
+                raise ExecutionError("Row(): time ranges are not supported "
+                                     "by this port yet")
             return self._field_row_words(f, row_id, shard, use_delta)
         if name in ("Union", "Xor"):
             op = bm.b_or if name == "Union" else bm.b_xor
@@ -442,7 +619,18 @@ class Executor:
             child = self._bitmap_words_shard(idx, call.children[0], shard,
                                              use_delta)
             return exist if child is None else bm.b_not(child, exist)
-        raise ExecutionError(f"{name}() is not supported by this port yet")
+        if name == "Shift":
+            if len(call.children) != 1:
+                raise ExecutionError("Shift() requires a single row query")
+            n = call.int_arg("n")
+            child = self._bitmap_words_shard(idx, call.children[0], shard,
+                                             use_delta)
+            if child is None:
+                return None
+            return bm.b_shift(child, 1 if n is None else n)
+        if name == "Distinct":
+            raise ExecutionError("Distinct() is not supported")
+        raise ExecutionError(f"unknown call: {name}")
 
     def _range_words_shard(self, idx, cond, shard: int):
         """A condition row on one shard (executor.py:1617-1632) -> int32
@@ -472,20 +660,33 @@ class Executor:
         child = call.children[0]
         if self._fuse_eligible(idx, shards, child):
             g = tuple(shards)
+            # the result-cache probe BEFORE the coalescer: a hit answers
+            # before the window and never takes a batch slot
+            probe = self._rc_probe(idx, "count", g, opt, tree=child)
+            if probe is not None:
+                rc, key, gens = probe
+                hit, val = rc.get(key, gens)
+                if hit:
+                    return val
             if self.coalescer is not None and self.coalescer.eligible(opt):
+                # the coalescer fills the cache for every flushed member;
                 # ?nocontainers disables the VM too: it executes over
                 # compressed pools
                 return self.coalescer.count(
                     self, idx, child, g, use_delta=opt.delta,
-                    use_vm=opt.vm and opt.containers)
+                    use_vm=opt.vm and opt.containers, cache_fill=probe)
             plan = containers.plan_fused(idx, child, g, opt)
             if plan is not None:
-                return sum(plan.counts())
-            shape, leaves = self._fused_expr(idx, child, g, opt.delta)
-            counts = expr.evaluate(shape, leaves, counts=True)
-            # per-shard int32 counts summed as Python ints: one int32
-            # reduce over the stack could wrap past 2^31 set bits
-            return int(counts.to("cpu").to(torch.int64).sum())
+                total = sum(plan.counts())
+            else:
+                shape, leaves = self._fused_expr(idx, child, g, opt.delta)
+                counts = expr.evaluate(shape, leaves, counts=True)
+                # per-shard int32 counts summed as Python ints: one int32
+                # reduce over the stack could wrap past 2^31 set bits
+                total = int(counts.to("cpu").to(torch.int64).sum())
+            if probe is not None:
+                rc.put(key, gens, total, 32)
+            return total
         total = 0
         for s in shards:
             words = self._bitmap_words_shard(idx, child, s, opt.delta)
@@ -553,9 +754,8 @@ class Executor:
 
         fused_ok = self._fuse_eligible(idx, shards, filter_call)
         if fused_ok:
-            parts = [self._fused_topn_counts_uncached(idx, f, filter_call,
-                                                      tuple(shards),
-                                                      opt.delta)]
+            parts = [self._fused_topn_counts(idx, f, filter_call,
+                                             tuple(shards), opt)]
         else:
             parts = self._local_map(map_fn, shards)
         totals: dict[int, int] = {}
@@ -574,8 +774,8 @@ class Executor:
             src_count = self._execute_count(
                 idx, Call("Count", children=[filter_call]), shards, opt)
             if fused_ok:
-                full_counts = self._fused_topn_counts_uncached(
-                    idx, f, None, tuple(shards), opt.delta)
+                full_counts = self._fused_topn_counts(idx, f, None,
+                                                      tuple(shards), opt)
             else:
                 full = self._execute_topn(
                     idx, Call("TopN", {"_field": fname}), shards, opt)
@@ -599,6 +799,28 @@ class Executor:
         if n:
             pairs = pairs[:n]
         return pairs
+
+    def _fused_topn_counts(self, idx, f, filter_call,
+                           shards: tuple[int, ...], opt: ExecOptions
+                           ) -> dict[int, int]:
+        """Every shard's TopN row counts: from the result cache while the
+        field's matrix and the filter's leaves are at the stamped
+        generations, else one scan, filling the cache
+        (executor.py:1942-1963)."""
+        probe = self._rc_probe(idx, "topn", shards, opt, tree=filter_call,
+                               extra=f.name,
+                               gen_fields=((f, VIEW_STANDARD),))
+        if probe is not None:
+            rc, key, gens = probe
+            hit, val = rc.get(key, gens)
+            if hit:
+                return dict(val)
+        totals = self._fused_topn_counts_uncached(idx, f, filter_call,
+                                                  shards, opt.delta)
+        if probe is not None:
+            rc.put(key, gens, dict(totals),
+                   resultcache.result_nbytes(totals))
+        return totals
 
     def _fused_topn_counts_uncached(self, idx, f, filter_call,
                                     shards: tuple[int, ...],
@@ -743,6 +965,16 @@ class Executor:
         limit = call.uint_arg("limit")
         filter_call = call.call_arg("filter")
         shards = self._target_shards(idx, shards, opt)
+        # the result cache: the stamp covers each child's whole standard
+        # view and the filter's leaves; the truncation arguments ride
+        # the key, so the cut result caches as is (executor.py:2153-2170)
+        probe = self._groupby_cache_probe(idx, call, filter_call,
+                                          tuple(shards), opt)
+        if probe is not None:
+            rc, ckey, cgens = probe
+            hit, val = rc.get(ckey, cgens)
+            if hit:
+                return self._copy_group_counts(val)
         child_fields = []
         child_allowed: list[set | None] = []
         for child in call.children:
@@ -857,6 +1089,105 @@ class Executor:
             out = out[offset:] if offset < len(out) else out
         if limit is not None:
             out = out[:limit]
+        if probe is not None:
+            rc.put(ckey, cgens, self._copy_group_counts(out),
+                   resultcache.result_nbytes(out) * 2)
+        return out
+
+    def _groupby_cache_probe(self, idx, call: Call, filter_call,
+                             shards: tuple[int, ...], opt: ExecOptions):
+        """A GroupBy's cache (cache, key, stamp), or None when ineligible
+        (executor.py:2357-2387): every child a plain standard-view Rows
+        of a field with no time quantum, the filter absent or fused-
+        supported."""
+        sig_children = []
+        gen_fields = []
+        for child in call.children:
+            if child.name != "Rows":
+                return None
+            fname = child.args.get("_field") or child.args.get("field")
+            if not fname:
+                return None
+            f = idx.field(fname)
+            if (f is None or f.options.time_quantum
+                    or f.options.no_standard_view
+                    or "from" in child.args or "to" in child.args):
+                return None
+            sig_children.append((fname, child.uint_arg("limit"),
+                                 child.uint_arg("column"),
+                                 child.uint_arg("previous")))
+            gen_fields.append((f, VIEW_STANDARD))
+        if filter_call is not None and not self._fused_supported(
+                idx, filter_call):
+            return None
+        extra = (tuple(sig_children), call.uint_arg("limit"),
+                 call.uint_arg("offset"))
+        return self._rc_probe(idx, "groupby", shards, opt,
+                              tree=filter_call, extra=extra,
+                              gen_fields=gen_fields)
+
+    @staticmethod
+    def _copy_group_counts(res: list) -> list:
+        return [replace(gc, group=[replace(fr) for fr in gc.group])
+                for gc in res]
+
+    # ------------------------------------------------------ MinRow/MaxRow
+
+    def _execute_extreme_row(self, idx, call: Call, shards,
+                             opt: ExecOptions) -> Pair:
+        """MinRow/MaxRow (executor.py:2539-2603): the smallest or largest
+        row id with a bit under the filter, and its count.  Fused, the
+        TopN scan's row totals (cached with it); else shard by shard,
+        rows walked from the end that wins, and the winning ids' counts
+        summed over the shards."""
+        fname = call.string_arg("field") or call.args.get("field")
+        if not fname:
+            raise ExecutionError(f"{call.name}() requires a field argument")
+        f = self._field(idx, fname)
+        shards = self._target_shards(idx, shards, opt)
+        is_min = call.name == "MinRow"
+        filter_call = call.children[0] if call.children else None
+        if self._fuse_eligible(idx, shards, filter_call):
+            totals = self._fused_topn_counts(idx, f, filter_call,
+                                             tuple(shards), opt)
+            live = [r for r, c in totals.items() if c > 0]
+            if not live:
+                return Pair()
+            rid = min(live) if is_min else max(live)
+            return Pair(id=rid, count=totals[rid])
+        filter_row = self._local_filter_row(idx, call, shards, opt)
+
+        def map_fn(shard):
+            view = f.view(VIEW_STANDARD)
+            frag = view.fragment(shard) if view is not None else None
+            if frag is None:
+                return Pair()
+            ids = frag.row_ids()
+            if not is_min:
+                ids = list(reversed(ids))
+            fw = (None if filter_row is None
+                  else filter_row.shard_segment(shard))
+            if filter_row is not None and fw is None:
+                return Pair()
+            for rid in ids:
+                words = frag.row(rid)
+                if fw is not None:
+                    words = words & fw
+                c = int(np.bitwise_count(words).sum())
+                if c > 0:
+                    return Pair(id=rid, count=c)
+            return Pair()
+
+        out = Pair()
+        for p in self._local_map(map_fn, shards):
+            if p.count == 0:
+                continue
+            if out.count == 0:
+                out = Pair(id=p.id, count=p.count)
+            elif p.id == out.id:
+                out.count += p.count
+            elif (p.id < out.id) if is_min else (p.id > out.id):
+                out = Pair(id=p.id, count=p.count)
         return out
 
     # ------------------------------------------------------ aggregates
@@ -991,6 +1322,55 @@ class Executor:
         if ef is not None:
             ef.set_bit(0, col)
         return f.set_bit(row_id, col)
+
+    def _execute_clear_row(self, idx, call: Call) -> bool:
+        """Clear a row in every view and shard (executor.py:2904-2919)."""
+        fname = call.field_arg()
+        f = self._field(idx, fname)
+        if f.options.type not in (FieldType.SET, FieldType.TIME,
+                                  FieldType.MUTEX, FieldType.BOOL):
+            raise ExecutionError(f"ClearRow() is not supported on "
+                                 f"{f.options.type} fields")
+        row_id = call.uint_arg(fname)
+        if row_id is None:
+            raise ExecutionError("ClearRow() row argument required")
+        changed = False
+        for view in list(f.views.values()):
+            for frag in list(view.fragments.values()):
+                changed |= frag.clear_row(row_id)
+        return changed
+
+    def _execute_store(self, idx, call: Call, shards, opt: ExecOptions
+                       ) -> bool:
+        """Store(tree, f=row): write the tree's result as the row, shard
+        by shard (executor.py:2921-2958).  A shard is touched when the
+        source has bits there or the row already has, so no empty
+        fragment or no-op WAL record is made."""
+        if len(call.children) != 1:
+            raise ExecutionError("Store() requires a single row query")
+        fname = call.field_arg()
+        f = self._field(idx, fname)
+        row_id = call.uint_arg(fname)
+        if row_id is None:
+            raise ExecutionError("Store() row argument required")
+        target = self._target_shards(idx, shards, opt)
+        src = self._execute_bitmap_call(idx, call.children[0], target, opt)
+        changed = False
+        view = f.create_view_if_not_exists(VIEW_STANDARD)
+        target_shards = set(src.segments)
+        for shard, frag in list(view.fragments.items()):
+            if frag.row_count(row_id) > 0:
+                target_shards.add(shard)
+        for shard in sorted(target_shards):
+            words = src.shard_segment(shard)
+            if words is None:
+                words = np.zeros(bm.n_words(SHARD_WIDTH), dtype=np.uint32)
+            frag = view.create_fragment_if_not_exists(shard)
+            if frag.set_row(row_id, words):
+                changed = True
+                if words.any():
+                    f._note_shards((shard,))
+        return changed
 
     def _execute_clear(self, idx, call: Call) -> bool:
         col = call.uint_arg("_col")

@@ -12,15 +12,20 @@ serves:
     POST /index/{index}/query          (raw PQL or JSON {"query": ...})
     GET  /debug/ragged
     GET  /debug/ingest
+    GET  /debug/resultcache
 
 ``serialize_result`` is the reference's (handler.py:46), so the JSON of
 a query is byte-identical between the two packages.  Built on the
-stdlib ThreadingHTTPServer; protobuf bodies are not part of the port yet.
+stdlib ThreadingHTTPServer.  Protobuf bodies are not part of the port
+yet: the query and import routes refuse one with a 400, with the
+reference decoder's message where the body is not protobuf at all
+(``_refuse_protobuf``).
 """
 
 from __future__ import annotations
 
 import base64
+import datetime as dt
 import json
 import re
 import threading
@@ -38,6 +43,65 @@ from pilosa_tpu_torch.parallel.results import (GroupCount, Pair, PairField,
 
 #: largest accepted request body
 MAX_REQUEST_BYTES = 256 << 20
+
+
+def _read_varint(data: bytes, i: int) -> tuple[int, int]:
+    """One protobuf varint (pilosa_tpu/proto.py:45)."""
+    n = shift = 0
+    while True:
+        if i >= len(data):
+            raise ValueError("truncated varint")
+        b = data[i]
+        i += 1
+        n |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return n, i
+        shift += 7
+        if shift >= 70:
+            raise ValueError("varint too long")
+
+
+def _refuse_protobuf(req, body: bytes) -> None:
+    """A body sent as ``application/x-protobuf`` is refused, never read
+    as PQL or JSON.  The reference decodes it (pilosa_tpu/proto.py:204);
+    a body that breaks the wire format gets that decoder's error, and a
+    well-formed message the port's own, since it has no protobuf
+    schemas yet."""
+    if "protobuf" not in req.headers.get("Content-Type", ""):
+        return
+    i = 0
+    while i < len(body):
+        tag, i = _read_varint(body, i)
+        wire = tag & 7
+        if wire == 0:
+            _, i = _read_varint(body, i)
+        elif wire == 1:
+            if i + 8 > len(body):
+                raise ValueError("truncated fixed64")
+            i += 8
+        elif wire == 2:
+            ln, i = _read_varint(body, i)
+            if i + ln > len(body):
+                raise ValueError("truncated length-delimited field")
+            i += ln
+        elif wire == 5:
+            if i + 4 > len(body):
+                raise ValueError("truncated fixed32")
+            i += 4
+        else:
+            raise ValueError(f"unsupported wire type {wire}")
+    raise ApiError("protobuf bodies are not supported by this port yet")
+
+
+def _parse_ts(t):
+    """An import timestamp: unix seconds or nanoseconds, or an ISO-8601
+    string (pilosa_tpu/server/handler.py:1882)."""
+    if isinstance(t, (int, float)):
+        if t > 1 << 40:
+            t = t / 1e9
+        return dt.datetime.fromtimestamp(t, dt.timezone.utc).replace(
+            tzinfo=None)
+    return dt.datetime.fromisoformat(str(t).replace("Z", ""))
 
 
 def serialize_result(res):
@@ -217,6 +281,7 @@ class Handler:
 
     @route("POST", "/index/{index}/query")
     def handle_post_query(self, req, params, path, body):
+        _refuse_protobuf(req, body)
         pql = body.decode()
         if "json" in req.headers.get("Content-Type", ""):
             pql = json.loads(pql).get("query", "")
@@ -234,7 +299,10 @@ class Handler:
             vm=params.get("novm") not in ("1", "true"),
             # ?nodelta=1: compact pending ingest deltas up front and read
             # pure base state (pilosa_tpu/server/handler.py:779-782)
-            delta=params.get("nodelta") not in ("1", "true"))
+            delta=params.get("nodelta") not in ("1", "true"),
+            # ?nocache=1: a real execution, no result-cache probe or fill
+            # (pilosa_tpu/server/handler.py:776-778)
+            cache=params.get("nocache") not in ("1", "true"))
         if exclude_columns:
             for r in results:
                 if isinstance(r, Row):
@@ -247,6 +315,13 @@ class Handler:
         if params.get("columnAttrs") == "true" or any(
                 isinstance(r, Row) and r.wants_column_attrs for r in results):
             resp["columnAttrs"] = []
+        # ?partial=1 or X-Pilosa-Partial: the degraded-read meta, always
+        # present on such a request (pilosa_tpu/server/handler.py:
+        # 756-758, 846-853).  One node misses no shard.
+        if (params.get("partial") in ("1", "true")
+                or req.headers.get("X-Pilosa-Partial") in ("1", "true")):
+            resp["missingShards"] = []
+            resp["missingFraction"] = 0.0
         self._json(req, resp)
 
     @route("GET", "/debug/ragged")
@@ -285,6 +360,16 @@ class Handler:
 
         self._json(req, compactor.compactor().debug())
 
+    @route("GET", "/debug/resultcache")
+    def handle_debug_resultcache(self, req, params, path, body):
+        """Result-cache state with the reference's keys
+        (pilosa_tpu/server/handler.py:1350): budget, bytes and entries,
+        the hit / miss / fill / eviction / invalidation / flight totals,
+        and the largest entries."""
+        from pilosa_tpu_torch.runtime import resultcache
+
+        self._json(req, resultcache.cache().debug())
+
     @route("POST", "/index/{index}")
     def handle_create_index(self, req, params, path, body):
         d = json.loads(body or b"{}")
@@ -301,12 +386,20 @@ class Handler:
 
     @route("POST", "/index/{index}/field/{field}/import")
     def handle_import(self, req, params, path, body):
-        """JSON {"rowIDs": [...], "columnIDs": [...]}."""
+        """JSON {"rowIDs": [...], "columnIDs": [...], "timestamps":
+        [...]}.  Timestamps only reach a time view, which the port does
+        not have yet; into a field with no time quantum they are checked
+        and the standard view written, as in the reference
+        (pilosa_tpu/server/handler.py:960-964)."""
+        _refuse_protobuf(req, body)
         d = json.loads(body)
-        if d.get("timestamps"):
-            raise ApiError("timestamps are not supported by this port yet")
+        timestamps = d.get("timestamps")
+        if timestamps:
+            timestamps = [None if t is None else _parse_ts(t)
+                          for t in timestamps]
         self.api.import_bits(path["index"], path["field"],
                              d.get("rowIDs") or [], d.get("columnIDs") or [],
+                             timestamps=timestamps,
                              row_keys=d.get("rowKeys"),
                              col_keys=d.get("columnKeys"),
                              clear=params.get("clear") == "true")
@@ -316,6 +409,7 @@ class Handler:
     def handle_import_value(self, req, params, path, body):
         """JSON {"columnIDs": [...], "values": [...]}
         (pilosa_tpu/server/handler.py:976)."""
+        _refuse_protobuf(req, body)
         d = json.loads(body)
         self.api.import_values(path["index"], path["field"],
                                d.get("columnIDs") or [],
@@ -327,6 +421,7 @@ class Handler:
     def handle_import_roaring(self, req, params, path, body):
         """Raw roaring bytes for the standard view, or JSON
         {"views": {name: base64}}."""
+        _refuse_protobuf(req, body)
         if "json" in req.headers.get("Content-Type", ""):
             d = json.loads(body)
             views = {k: base64.b64decode(v)

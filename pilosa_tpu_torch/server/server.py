@@ -24,8 +24,16 @@ captures the config in force, each applies its knobs, an ingest-enabled
 server takes a reference on the compactor's scan thread at construction
 (pilosa_tpu_torch/ingest/compactor.retain) and gives it back on close,
 and the last closer restores the captured config
-(pilosa_tpu/server/server.py:288-311, 382-391, 716-735).  ``close`` is
-idempotent.
+(pilosa_tpu/server/server.py:288-311, 382-391, 716-735).
+
+The ``[cache]`` knobs ``cache_enabled`` (default true, as ``[cache]
+enabled``), ``cache_budget_bytes``, ``cache_max_entry_bytes`` and
+``cache_ttl`` (server.py:84-87, 276-290) configure the process-wide
+result cache (runtime/resultcache.py) in place, so a second server in
+the process keeps the first's warm entries.  The server takes a
+reference at construction, where its knobs land, and gives it back on
+close; the last closer restores the knobs the first one found.
+``close`` is idempotent.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from pilosa_tpu_torch.models.holder import Holder
 from pilosa_tpu_torch.ops import containers, tape
 from pilosa_tpu_torch.parallel.coalescer import Coalescer
 from pilosa_tpu_torch.parallel.executor import Executor
+from pilosa_tpu_torch.runtime import resultcache
 from pilosa_tpu_torch.server.handler import Handler
 
 
@@ -56,6 +65,10 @@ class Server:
                  containers_kinds: bool | None = None,
                  containers_array_max: int | None = None,
                  containers_run_cap: int | None = None,
+                 cache_enabled: bool = True,
+                 cache_budget_bytes: int | None = None,
+                 cache_max_entry_bytes: int | None = None,
+                 cache_ttl: float | None = None,
                  ingest_delta_enabled: bool = True,
                  ingest_delta_budget_bytes: int | None = None,
                  ingest_compact_threshold_bits: int | None = None,
@@ -76,6 +89,12 @@ class Server:
                                   "array_max": containers_array_max,
                                   "run_cap": containers_run_cap}
         self._containers_retained = False
+        self._cache_knobs = {"budget_bytes": cache_budget_bytes,
+                             "max_entry_bytes": cache_max_entry_bytes,
+                             "ttl_s": cache_ttl, "enabled": cache_enabled}
+        resultcache.retain()
+        self._cache_retained = True
+        resultcache.configure(**self._cache_knobs)
         ingest.capture_baseline()
         ingest.configure(delta_enabled=ingest_delta_enabled,
                          delta_budget_bytes=ingest_delta_budget_bytes,
@@ -105,6 +124,10 @@ class Server:
             # reopened after close: take the compactor reference back
             compactor.retain()
             self._ingest_retained = True
+        if not self._cache_retained:
+            resultcache.retain()
+            self._cache_retained = True
+            resultcache.configure(**self._cache_knobs)
         self._closed = False
         containers.retain()
         self._containers_retained = True
@@ -137,6 +160,9 @@ class Server:
             self.holder.close()
             self.holder = None
         self._release_containers()
+        if self._cache_retained:
+            self._cache_retained = False
+            resultcache.release()
         if self._ingest_retained:
             self._ingest_retained = False
             last = compactor.release()

@@ -5,7 +5,8 @@ attached, and then equal answers, equal routes and equal ``vm.*`` /
 ``tape.*`` counters.
 
 The JAX side runs the configuration the port implements (single device:
-mesh off; container kinds off; ingest deltas off; result cache off) with
+mesh off; container kinds off; ingest deltas off; the result cache at
+its default, on, as in the port) with
 ``Coalescer(enabled=True)`` attached, as its own tests/test_vm.py does.
 On the CPU the port's ``"auto"`` resolves to off, so the port's
 coalescer is forced on too."""
@@ -28,7 +29,6 @@ from pilosa_tpu.parallel import meshexec
 from pilosa_tpu.parallel.coalescer import Coalescer as JCoalescer
 from pilosa_tpu.parallel.executor import ExecOptions as JOpts
 from pilosa_tpu.parallel.executor import Executor as JExecutor
-from pilosa_tpu.runtime import resultcache
 from pilosa_tpu.server.server import Server as JServer
 from pilosa_tpu_torch import ingest as tingest
 from pilosa_tpu_torch.models.holder import Holder as THolder
@@ -67,7 +67,6 @@ def _reference_configuration():
     port's ingest deltas off, as the JAX holders run them (the reference
     module's default)."""
     mesh_was = meshexec._cfg.enabled
-    rc_was = resultcache.cache().enabled
     delta_was = tingest.config().delta_enabled
     tingest.configure(delta_enabled=False)
     meshexec.configure(enabled=False)
@@ -75,13 +74,11 @@ def _reference_configuration():
     jct.configure(kinds=False)
     tct.reset()
     tct.configure(kinds=False)
-    resultcache.cache().enabled = False
     jtape.reset_counters()
     ttape.reset_counters()
     yield
     tingest.configure(delta_enabled=delta_was)
     meshexec.configure(enabled=mesh_was)
-    resultcache.cache().enabled = rc_was
     jct.reset()
     tct.reset()
 
@@ -240,9 +237,12 @@ def test_novm_and_nocontainers_take_the_dense_engines(pair):
     _attach(jex, tex, max_batch=6)
     qs = QS[:6]
     truth = [_per_shard(tex, q) for q in qs]
-    for opt, jopt in ((TOpts(vm=False), JOpts(mesh=False, vm=False)),
-                      (TOpts(containers=False),
-                       JOpts(mesh=False, containers=False))):
+    # the second round repeats the first's queries: both skip the
+    # result cache, whose hits would take no route at all
+    for opt, jopt in ((TOpts(vm=False, cache=False),
+                       JOpts(mesh=False, vm=False, cache=False)),
+                      (TOpts(containers=False, cache=False),
+                       JOpts(mesh=False, containers=False, cache=False))):
         ttape.reset_counters()
         jtape.reset_counters()
         jgot, jl = _fire(jex, qs, jopt)

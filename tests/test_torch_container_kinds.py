@@ -21,7 +21,7 @@ shard boundary.  Then, with kinds on in both:
 - flipping ``kinds`` rebuilds the cached leaf.
 
 The JAX side runs what the port implements: mesh off, ingest deltas
-off, result cache off.  Every fixture snapshots the process-wide fields
+off, the result cache on (both packages' default).  Every fixture snapshots the process-wide fields
 it touches and restores exactly those.
 """
 
@@ -47,7 +47,6 @@ from pilosa_tpu.parallel.coalescer import Coalescer as JCoalescer
 from pilosa_tpu.parallel.executor import ExecOptions as JOpts
 from pilosa_tpu.parallel.executor import Executor as JExecutor
 from pilosa_tpu.pql import parse as jparse
-from pilosa_tpu.runtime import resultcache
 from pilosa_tpu.server.server import Server as JServer
 from pilosa_tpu_torch import ingest as tingest
 from pilosa_tpu_torch.models.holder import Holder as THolder
@@ -174,7 +173,6 @@ def _kinds_configuration():
                for k in type(tct.config()).__slots__}
     delta_was = jingest.config().delta_enabled
     tdelta_was = tingest.config().delta_enabled
-    rc_was = resultcache.cache().enabled
     meshexec.configure(enabled=False)
     jct.configure(enabled=True, threshold=jct.DEFAULT_THRESHOLD, kinds=True,
                   array_max=jct.DEFAULT_ARRAY_MAX, run_cap=jct.DEFAULT_RUN_CAP)
@@ -182,11 +180,9 @@ def _kinds_configuration():
                   array_max=tct.DEFAULT_ARRAY_MAX, run_cap=tct.DEFAULT_RUN_CAP)
     jingest.config().delta_enabled = False
     tingest.configure(delta_enabled=False)
-    resultcache.cache().enabled = False
     try:
         yield
     finally:
-        resultcache.cache().enabled = rc_was
         tingest.configure(delta_enabled=tdelta_was)
         jingest.config().delta_enabled = delta_was
         jct.configure(**jct_was)
@@ -353,8 +349,10 @@ def test_coalesced_counts_mixing_kinds_share_one_vm_launch(pair,
         return real(*args)
 
     monkeypatch.setattr(ck, "vm_counts_kinds", spy)
-    jgot, jl = _fire(jex, qs, JOPT)
-    tgot, tl = _fire(tex, qs, TOpts())
+    # the truths above filled the port's result cache: the round skips
+    # it on both sides, so every query takes the window
+    jgot, jl = _fire(jex, qs, JOpts(mesh=False, cache=False))
+    tgot, tl = _fire(tex, qs, TOpts(cache=False))
     assert tgot == jgot == truth
     assert tl == jl == ["vm"]
     assert len(calls) == 1  # the kind-split megapool took K3-kinds
@@ -461,7 +459,7 @@ def test_http_answers_are_byte_identical_json(tmp_path, data):
     rows, _exist = data
     js = JServer(str(tmp_path / "j"), mesh_enabled=False,
                  coalescer_enabled=False, containers_kinds=True,
-                 ingest_delta_enabled=False, cache_enabled=False)
+                 ingest_delta_enabled=False)
     js.open()
     try:
         ts = TServer(str(tmp_path / "t"), device="cpu")

@@ -17,7 +17,6 @@ from pilosa_tpu.ops import pallas_kernels as pk
 from pilosa_tpu.parallel import meshexec
 from pilosa_tpu.parallel.executor import ExecOptions as JOpts
 from pilosa_tpu.pql import parse as jparse
-from pilosa_tpu.runtime import resultcache
 from pilosa_tpu_torch import ingest as tingest
 from pilosa_tpu_torch.models.holder import Holder as THolder
 from pilosa_tpu_torch.ops import bitmap as tbm
@@ -48,7 +47,6 @@ def _single_device_all_bitmap():
     packages and the port's ingest deltas off, as the JAX holders run
     them (the reference module's default)."""
     mesh_was = meshexec._cfg.enabled
-    rc_was = resultcache.cache().enabled
     delta_was = tingest.config().delta_enabled
     tingest.configure(delta_enabled=False)
     meshexec.configure(enabled=False)
@@ -56,11 +54,9 @@ def _single_device_all_bitmap():
     jct.configure(kinds=False)
     tct.reset()
     tct.configure(kinds=False)
-    resultcache.cache().enabled = False
     yield
     tingest.configure(delta_enabled=delta_was)
     meshexec.configure(enabled=mesh_was)
-    resultcache.cache().enabled = rc_was
     jct.reset()
     tct.reset()
 

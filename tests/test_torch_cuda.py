@@ -15,7 +15,9 @@ coalesced batches over rows with pending ingest deltas launching K3 and
 K3-kinds once on ``dfuse`` tapes (each launch held against its plain
 version), TopN and GroupBy
 launching K4 and K5, and an int field's range rows and aggregates
-launching K6, K4 and K1 where the CPU tests see their dispatch sites.
+launching K6, K4 and K1 where the CPU tests see their dispatch sites,
+and K3 and K3-kinds launched at once from many threads with different
+shared memory sizes.
 
 Without a card every test here skips.  On a machine with one, run
 
@@ -399,6 +401,58 @@ def test_k3_kinds_matches_its_plain_version(cuda_device, n_blocks, slots,
     cpu = [a.cpu() for a in args]
     assert np.array_equal(got.cpu().numpy(),
                           ck.vm_counts_kinds(*cpu).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["vm_counts", "vm_counts_kinds"])
+def test_vm_launches_of_different_sizes_from_many_threads(cuda_device,
+                                                          kernel):
+    """The coalescer flushes each bucket on its leader's thread, so K3
+    and K3-kinds launches of different shared memory sizes run at once.
+    The size limit is one attribute of the kernel for every thread, so
+    each launch sets it and enqueues under a lock; without it a launch
+    finds a smaller thread's limit and fails (cudaErrorInvalidValue)."""
+    import threading
+
+    if kernel == "vm_counts":
+        fn, plain = ck.vm_counts, ck.vm_counts_plain
+        cases = []
+        for shape in ((1, 1, 1, 1, 2), (16, 32, 2, 16, 40), (4, 4, 4, 8, 64)):
+            pool, prog, gidx = _vm_case(shape[0] * 100 + shape[1], *shape)
+            cases.append((bm.to_tensor(pool, cuda_device),
+                          torch.from_numpy(prog), torch.from_numpy(gidx)))
+    else:
+        fn, plain = ck.vm_counts_kinds, ck.vm_counts_kinds_plain
+        cases = [_kinds_case(n + s, n, s, t, q, d, cuda_device)
+                 for n, s, t, q, d in ((3, 1, 1, 1, 1), (60, 16, 32, 2, 16),
+                                       (30, 4, 4, 4, 8))]
+    wants = [plain(*args) for args in cases]
+    n_threads, rounds = 8, 60
+    bar = threading.Barrier(n_threads)
+    errs: list = []
+
+    def client(i):
+        try:
+            bar.wait(timeout=60)
+            for r in range(rounds):
+                j = (i + r) % len(cases)
+                got = fn(*cases[j])
+                torch.cuda.synchronize()
+                assert torch.equal(got, wants[j]), (i, r, j)
+        except BaseException as e:  # noqa: BLE001 -- reported below
+            errs.append(f"{type(e).__name__}: {e}")
+            bar.abort()
+
+    before = fn.launches
+    ts = [threading.Thread(target=client, args=(i,))
+          for i in range(n_threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in ts)
+    assert not errs, errs[:3]
+    assert fn.launches == before + n_threads * rounds
 
 
 @pytest.mark.cuda

@@ -1,7 +1,7 @@
 """The port's fused tree evaluator (ops/expr.py) against the JAX
 package's, on the same seeded numpy stacks: result words and per-row
-counts for and/or/xor/andnot/not and nested three-leaf shapes, dense and
-gathered.  Exact equality."""
+counts for and/or/xor/andnot/not/shift and nested three-leaf shapes,
+dense and gathered.  Exact equality."""
 
 from __future__ import annotations
 
@@ -26,6 +26,9 @@ SHAPES = [
     ("andnot", ("xor", L0, L2), ("or", L1, L2)),
     ("not", L2, ("or", L0, ("and", L1, L2))),
     ("xor", L0, ("not", L2, L1), ("andnot", L2, L0)),
+    ("shift", 1, L0),
+    ("shift", 33, ("and", L0, L1)),
+    ("or", ("shift", 70000, L1), ("shift", 0, L2)),
 ]
 
 
@@ -97,7 +100,7 @@ def test_one_dispatch_per_evaluate_and_leaf_passthrough():
     assert out is tl[1]
 
 
-@pytest.mark.parametrize("bad", [("leaf", 3), ("and",), ("shift", 1, L0),
+@pytest.mark.parametrize("bad", [("leaf", 3), ("and",), ("shift", -1, L0),
                                  ("nand", L0, L1)], ids=str)
 def test_validate_rejects_bad_shapes(bad):
     with pytest.raises(ValueError):
@@ -107,4 +110,5 @@ def test_validate_rejects_bad_shapes(bad):
 def _leaf_slots(shape):
     if shape[0] == "leaf":
         return [shape]
-    return [s for c in shape[1:] for s in _leaf_slots(c)]
+    return [s for c in shape[1:] if isinstance(c, tuple)
+            for s in _leaf_slots(c)]

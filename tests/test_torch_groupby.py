@@ -151,16 +151,18 @@ def test_rows_agree_with_the_naive_oracle(servers):
 def test_groupby_launch_sites_on_a_cpu_server(servers):
     """A level with group masks is one ``masked_matrix_counts`` per
     shard (K5 on a card); the unfiltered first level is a plain row
-    count.  A CPU server launches no kernel."""
+    count.  A CPU server launches no kernel.  The queries skip the
+    result cache (``?nocache=1``), whose hit would launch nothing."""
     _js, ts, _data = servers
     n_shards = len(ts.holder.index("i").available_shards())
     before = ck.launch_counts()
     with tbm.dispatch_counter() as dc:
-        ts.api.query("i", "GroupBy(Rows(s), Rows(u))")
+        ts.api.query("i", "GroupBy(Rows(s), Rows(u))", cache=False)
     assert dc.launches.count("masked_matrix_counts") == n_shards
     assert dc.launches.count("row_counts") == n_shards
     with tbm.dispatch_counter() as dc:
-        ts.api.query("i", "GroupBy(Rows(f), Rows(s), filter=Row(f=1))")
+        ts.api.query("i", "GroupBy(Rows(f), Rows(s), filter=Row(f=1))",
+                     cache=False)
     assert dc.launches.count("masked_matrix_counts") == 2 * n_shards
     assert "row_counts" not in dc.launches
     assert ck.launch_counts() == before

@@ -16,7 +16,7 @@ files (WAL and snapshot) are byte-identical between the packages, and
 each package opens the other's data directory with the same values.
 
 The JAX side runs the configuration the port implements: mesh off,
-result cache off, container kinds off, ingest deltas off, coalescer
+the result cache on (both defaults), container kinds off, ingest deltas off, coalescer
 off.  The JAX server sets the mesh and container configurations process
 wide and restores them when it closes; the fixture restores them once
 more from its own snapshot, so the file leaves them as it found them
@@ -127,8 +127,7 @@ def oracle_values(data: dict, cleared=()) -> dict:
 def jax_server(path: str) -> JServer:
     """The JAX server in the configuration the port implements."""
     return JServer(path, mesh_enabled=False, coalescer_enabled=False,
-                   containers_kinds=False, ingest_delta_enabled=False,
-                   cache_enabled=False)
+                   containers_kinds=False, ingest_delta_enabled=False)
 
 
 @pytest.fixture(scope="module")
@@ -281,7 +280,9 @@ def test_answers_agree_with_the_naive_oracle_and_follow_clears(servers):
 def test_int_field_launch_sites_on_a_cpu_server(servers):
     """The calls that launch K6, K1 and K4 on a card: one compare per
     fused range leaf (two for a between across zero), the plane counts
-    and a filtered Sum's K1 count; a CPU server launches no kernel."""
+    and a filtered Sum's K1 count; a CPU server launches no kernel.  The
+    queries skip the result cache (``?nocache=1``), whose hit would
+    launch nothing."""
     _js, ts, _data = servers
     before = ck.launch_counts()
     for q, compares, counts_and in (
@@ -292,7 +293,7 @@ def test_int_field_launch_sites_on_a_cpu_server(servers):
             ("Sum(field=v)", 0, 0),
             ("Sum(Row(f=1), field=v)", 0, 1)):
         with tbm.dispatch_counter() as dc:
-            ts.api.query("i", q)
+            ts.api.query("i", q, cache=False)
         assert dc.launches.count("bsi_compare") == compares, q
         assert dc.launches.count("popcount_and") == counts_and, q
         assert dc.launches.count("plane_counts") == \

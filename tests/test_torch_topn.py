@@ -12,7 +12,7 @@ the other's, and the field's matrix stack (the fused scan's operand)
 holds the reference's rows in the reference's order.
 
 The JAX side runs the configuration the port implements: mesh off,
-result cache off, container kinds off, ingest deltas off, coalescer
+the result cache on (both defaults), container kinds off, ingest deltas off, coalescer
 off.
 """
 
@@ -90,8 +90,7 @@ def import_dataset(uri: str, data: dict) -> None:
 def jax_server(path: str) -> JServer:
     """The JAX server in the configuration the port implements."""
     return JServer(path, mesh_enabled=False, coalescer_enabled=False,
-                   containers_kinds=False, ingest_delta_enabled=False,
-                   cache_enabled=False)
+                   containers_kinds=False, ingest_delta_enabled=False)
 
 
 @pytest.fixture(scope="module")
@@ -189,15 +188,18 @@ def test_topn_counts_agree_with_the_naive_oracle(servers):
 def test_topn_launch_sites_on_a_cpu_server(servers):
     """The fused filtered TopN is one ``row_counts_gathered`` scan and
     the one-shard one a ``row_counts_masked`` scan -- the calls that
-    launch K4 on a card -- and a CPU server launches no kernel."""
+    launch K4 on a card -- and a CPU server launches no kernel.  The
+    queries skip the result cache (``?nocache=1``), whose hit would
+    launch nothing."""
     _js, ts, _data = servers
     before = ck.launch_counts()
     with tbm.dispatch_counter() as dc:
-        ts.api.query("i", "TopN(s, Row(f=1), n=3)")
+        ts.api.query("i", "TopN(s, Row(f=1), n=3)", cache=False)
     assert dc.launches.count("row_counts_gathered") == 1
     assert "row_counts_masked" not in dc.launches
     with tbm.dispatch_counter() as dc:
-        ts.api.query("i", "TopN(s, Row(f=1), n=3)", shards=[2])
+        ts.api.query("i", "TopN(s, Row(f=1), n=3)", shards=[2],
+                     cache=False)
     assert dc.launches.count("row_counts_masked") == 1
     assert ck.launch_counts() == before
 
