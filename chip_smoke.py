@@ -11,9 +11,10 @@ rows and Sum/Min/Max over an int field on it, and Count/Row trees over
 array, run and bitmap containers ([containers] kinds, the server's
 default), and writes that wait in ingest delta planes ([ingest]
 delta-enabled, the server's default) under coalesced, dense and
-per-shard reads, and the result cache ([cache] enabled, the server's
-default) with the calls it keys -- and holds every hand-written kernel
-against its plain PyTorch version on the card.
+per-shard reads, mutex, bool and time fields with the schema and admin
+routes, and the result cache ([cache] enabled, the server's default)
+with the calls it keys -- and holds every hand-written kernel against
+its plain PyTorch version on the card.
 
 The server runs the port's defaults, with one knob set: its compactor
 scans once an hour (``INGEST_INTERVAL``), so that every delta merge in
@@ -119,8 +120,26 @@ paths read base rows, as they would once the compactor had run.
    rows and after compaction, of the first Count after a Set, and of the
    write rate through ``/import``; every answer equal to the numpy
    oracle, which takes every write;
-11d. the cache phase (``phase_cache``): the result cache at the server's
-   default (on); steps 5-11c pass ``?nocache=1`` on every query, so that
+11d. the field-types phase (``phase_field_types``), every query with
+   ``?nocache=1``: time field t (quantum YMD) rows 1-2 at 8 %, each bit on
+   one of 7 days from 2024-01-29 (11 views), loaded through
+   ``/import-roaring`` with a JSON ``{"views": ...}`` body; mutex field m
+   (every column in one of rows 1-8 at 40/20/10/10/8/6/4/2 %) and bool
+   field b (true 30 %, false 50 %), refused by ``/import-roaring`` (400)
+   and loaded through ``Field.import_roaring``; time-range Counts (a
+   3-day cover, whole months, an open end, a range with no view, one in
+   an Intersect), a ranged Rows, TopN over t and m (K4 filtered), a
+   coalesced Count over m (K3) and with ``?nocoalesce=true`` (K2), bool
+   Counts and ``GroupBy(Rows(m), Rows(b))`` (K5 per shard), each once cold
+   and ``FT_RUNS`` times warm; a ``Set`` into a new day view; a mutex
+   ``/import`` of ``FT_MUTEX_MOVES`` bits and two Sets that move columns,
+   then every query again; every answer equal to the numpy oracle and
+   every kernel launched exactly at its sites; then ``GET /schema``,
+   ``GET /export`` of an m shard against the oracle's CSV, ``POST
+   /recalculate-caches``, a field deleted and recreated with other bits,
+   and the read-only routes;
+11e. the cache phase (``phase_cache``): the result cache at the server's
+   default (on); steps 5-11d pass ``?nocache=1`` on every query, so that
    their repeats launch their kernels.  The 16 coalesced trees twice, the
    second round all hits with no K2, K3, K3-kinds, K4 or K5 launch; a Set
    on f row 1 (a pending delta) and then a compaction each make every
@@ -202,7 +221,7 @@ PROFILED_ROUNDS = 10
 N_SHARDS = 256  # of 2^20 columns: the 268,435,456-column index
 SCAN_SHARDS = 64  # shards 0-63 hold the scan path's fields s and u
 SCAN_ROWS = 64  # rows of s and of u
-QUERY_RUNS = 30  # warm runs of each TopN / Rows / GroupBy query
+QUERY_RUNS = 15  # warm runs of each TopN / Rows / GroupBy query
 FILL_BITS = 10  # the scan fields' fills are multiples of 2^-10
 SCAN_COLUMN = (7, 12345)  # Rows(s, column=...): shard 7, offset 12345
 BSI_MIN, BSI_MAX, BSI_DEPTH = -1_000_000, 1_000_000, 20  # int field v
@@ -213,7 +232,7 @@ BSI_SET = (5, 4321, 123)  # Set(col, v=123) at shard 5, offset 4321
 KINDS_ARRAY_BITS = 65  # of 65536 per container: the array rows, ~0.1 %
 KIND_RUNS = 16  # runs per container in the run rows...
 KIND_RUN_LEN = 512  # ...of this many columns each (12.5 % fill)
-KINDS_WARM = 30  # warm runs of each kinds-leg query
+KINDS_WARM = 20  # warm runs of each kinds-leg query
 KINDS_ROUNDS = 30  # coalesced rounds over kinds-mixed shapes
 KINDS_TIMED_BATCH = 4  # queries in the timed K3-kinds launch
 FIXED_B = 4  # queries of the fixed-shape K3 and K3-kinds launches...
@@ -2747,6 +2766,449 @@ def phase_k3k_fixed(torch, ck, tape, bm, kp, dev, seed: int,
 # ------------------------------------------------------------ result cache
 
 #: the kernels a cache hit must not launch
+# ------------------------------------------------- mutex, bool and time
+
+FT_DAY0 = (2024, 1, 29)  # t's bits are stamped on 7 days from here
+FT_DAYS = 7
+FT_NEW_DAY = 7  # 2024-02-05: the day view the phase's PQL Set creates
+#: m rows 1-8 take every column, at these percent shares
+FT_MUTEX_SHARES = (40, 20, 10, 10, 8, 6, 4, 2)
+FT_BOOL_TRUE, FT_BOOL_FALSE = 3, 5  # of 10 columns: b true, b false
+FT_RUNS = 5  # warm runs of each field-types query
+FT_MUTEX_MOVES = 10_000  # (row, column) pairs of the mutex /import
+FT_EXPORT_SHARD = 5
+FT_SCRATCH_BITS = (4000, 2500)  # field x's bits before and after recreate
+FT_FIELDS = (("t", {"type": "time", "timeQuantum": "YMD"}),
+             ("m", {"type": "mutex"}), ("b", {"type": "bool"}))
+
+
+def ft_day(d: int) -> str:
+    import datetime as dt
+
+    return (dt.date(*FT_DAY0) + dt.timedelta(days=d)).strftime("%Y%m%d")
+
+
+def field_type_data(seed: int, n_shards: int, words: int) -> dict:
+    """t: rows 1 and 2 at ~8 %, each bit on one of FT_DAYS days, as
+    ``days[(row, day)]``; m: every column in one of rows 1-8 at
+    FT_MUTEX_SHARES; b: rows 1 (true, 30 %) and 0 (false, 50 %).  Arrays
+    are uint32[n_shards, words]."""
+    rng = np.random.default_rng(seed + 41)
+    days = {(r, d): np.zeros((n_shards, words), dtype=np.uint32)
+            for r in (1, 2) for d in range(FT_DAYS + 1)}
+    m = {r: np.zeros((n_shards, words), dtype=np.uint32) for r in range(1, 9)}
+    b = {r: np.zeros((n_shards, words), dtype=np.uint32) for r in (0, 1)}
+    cuts = np.cumsum(FT_MUTEX_SHARES)[:-1] * (1 << 16) // 100
+
+    def pack(mask):
+        return np.packbits(mask, bitorder="little").view(np.uint32)
+
+    for s in range(n_shards):
+        for r in (1, 2):
+            u = rng.integers(0, 1 << 16, size=words * 32, dtype=np.uint16)
+            day = np.where(u < FILL_SPARSE, u % FT_DAYS, FT_DAYS + 1)
+            for d in range(FT_DAYS):
+                days[(r, d)][s] = pack(day == d)
+        u = rng.integers(0, 1 << 16, size=words * 32, dtype=np.uint16)
+        row = np.searchsorted(cuts, u, side="right") + 1
+        for r in m:
+            m[r][s] = pack(row == r)
+        v = rng.integers(0, 10, size=words * 32, dtype=np.uint8)
+        b[1][s] = pack(v < FT_BOOL_TRUE)
+        b[0][s] = pack((v >= FT_BOOL_TRUE)
+                       & (v < FT_BOOL_TRUE + FT_BOOL_FALSE))
+    return {"days": days, "m": m, "b": b}
+
+
+def ft_union(ft: dict, r: int, days) -> np.ndarray:
+    out = np.zeros_like(ft["days"][(r, 0)])
+    for d in days:
+        np.bitwise_or(out, ft["days"][(r, d)], out=out)
+    return out
+
+
+def ft_time_views(ft: dict) -> dict:
+    """View name -> {row: words} of t as the reference writes it: the
+    standard view, the year, both months and one view per day."""
+    all_days = range(FT_DAYS)
+    jan = [d for d in all_days if ft_day(d)[4:6] == "01"]
+    feb = [d for d in all_days if ft_day(d)[4:6] == "02"]
+    views = {"": {r: ft_union(ft, r, all_days) for r in (1, 2)}}
+    views["standard_2024"] = views[""]
+    views["standard_202401"] = {r: ft_union(ft, r, jan) for r in (1, 2)}
+    views["standard_202402"] = {r: ft_union(ft, r, feb) for r in (1, 2)}
+    for d in all_days:
+        views[f"standard_{ft_day(d)}"] = {r: ft["days"][(r, d)]
+                                          for r in (1, 2)}
+    return views
+
+
+def ft_oracles(ft: dict, f1: np.ndarray) -> dict:
+    """The numpy answers of the field-types queries."""
+    m, b = ft["m"], ft["b"]
+    every = range(FT_DAYS + 1)
+    tstd = {r: ft_union(ft, r, every) for r in (1, 2)}
+    three = ft_union(ft, 1, (1, 2, 3))
+    mb = pair_counts(m, b)
+    return {
+        "time_3day": popcounts(three),
+        "time_months": popcounts(ft_union(ft, 1, range(FT_DAYS))),
+        "time_open": popcounts(ft_union(ft, 2, range(3, FT_DAYS + 1))),
+        "time_noview": 0,
+        "time_and_f": popcounts(three & f1),
+        "time_rows": [1, 2],
+        "time_topn": topn_json({r: popcounts(w & f1)
+                                for r, w in tstd.items()}, 5),
+        "mutex_topn": topn_json({r: popcounts(w) for r, w in m.items()}, 8),
+        "mutex_topn_f": topn_json({r: popcounts(w & f1)
+                                   for r, w in m.items()}, 8),
+        "mutex_and_f": popcounts(m[3] & f1),
+        "mutex_and_f_k2": popcounts(m[3] & f1),
+        "bool_true": popcounts(b[1]),
+        "bool_false_m1": popcounts(b[0] & m[1]),
+        "groupby_mb": groups_json("m", "b", {
+            (i, j): int(mb[ii, jj]) for ii, i in enumerate(sorted(m))
+            for jj, j in enumerate(sorted(b))}),
+    }
+
+
+def ft_queries(n_shards: int) -> tuple:
+    """(label, PQL, URL flags, {kernel: launches per run}) of the
+    field-types queries.  A time-range leaf is a dense stack (the VM and
+    the container engine decline it) and a bool literal is never fused,
+    so neither launches a kernel; GroupBy's second level is one K5 per
+    shard."""
+    return (
+        ("time_3day", "Count(Row(t=1, from=2024-01-30T00:00, "
+                      "to=2024-02-02T00:00))", "", {}),
+        ("time_months", "Count(Row(t=1, from=2024-01-01T00:00, "
+                        "to=2024-03-01T00:00))", "", {}),
+        ("time_open", "Count(Row(t=2, from=2024-02-01T00:00))", "", {}),
+        ("time_noview", "Count(Row(t=1, from=2024-03-01T00:00, "
+                        "to=2024-03-05T00:00))", "", {}),
+        ("time_and_f", "Count(Intersect(Row(t=1, from=2024-01-30T00:00, "
+                       "to=2024-02-02T00:00), Row(f=1)))", "", {}),
+        ("time_rows", "Rows(t, from=2024-01-30T00:00, to=2024-02-02T00:00)",
+         "", {}),
+        ("time_topn", "TopN(t, Row(f=1), n=5)", "", {"row_counts_masked": 1}),
+        ("mutex_topn", "TopN(m, n=8)", "", {}),
+        ("mutex_topn_f", "TopN(m, Row(f=1), n=8)", "",
+         {"row_counts_masked": 1}),
+        ("mutex_and_f", "Count(Intersect(Row(m=3), Row(f=1)))", "",
+         {"vm_counts": 1}),
+        ("mutex_and_f_k2", "Count(Intersect(Row(m=3), Row(f=1)))",
+         "?nocoalesce=true", {"gathered_count_and": 1}),
+        ("bool_true", "Count(Row(b=true))", "", {}),
+        ("bool_false_m1", "Count(Intersect(Row(b=false), Row(m=1)))", "", {}),
+        ("groupby_mb", "GroupBy(Rows(m), Rows(b))", "",
+         {"masked_matrix_counts": n_shards}),
+    )
+
+
+def ft_run(ck, http: Http, queries, wants: dict, runs: int, out: dict,
+           tag: str = "") -> None:
+    """Each query ``runs`` times, every answer equal to the oracle and
+    every kernel launched exactly at its sites (the counts read around
+    each query)."""
+    for label, pql, flags, sites in queries:
+        k0 = ck.launch_counts()
+        lat = []
+        for _ in range(runs):
+            res, ms = http.query(pql, flags)
+            lat.append(ms)
+            check(res == [wants[label]],
+                  f"{pql}{flags}: {str(res)[:300]} differs from the oracle "
+                  f"{str(wants[label])[:300]}")
+        k1 = ck.launch_counts()
+        got = {k: k1[k] - k0[k] for k in k1 if k1[k] != k0[k]}
+        want = {k: n * runs for k, n in sites.items()}
+        check(got == want, f"{pql}{flags}: launched {got} in {runs} runs, "
+                           f"its sites {want}")
+        entry = {"pql": pql + flags, "first_ms": lat[0], "launches": got}
+        if runs > 2:
+            entry["warm_ms"] = spread(lat[1:])
+        out[label + tag] = entry
+        log(f"{label}{tag}: {pql}{flags} = oracle; launches {got}; first "
+            f"{lat[0]:.2f} ms" + (f", warm {fmt(entry['warm_ms'])}"
+                                  if runs > 2 else ""))
+
+
+def ft_get(http: Http, path: str) -> tuple[int, bytes]:
+    try:
+        with urllib.request.urlopen(http.uri + path, timeout=600) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def ft_delete(http: Http, path: str) -> int:
+    req = urllib.request.Request(http.uri + path, method="DELETE")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def ft_schema(width: int) -> dict:
+    """The schema the served index has when the phase reads it."""
+    def opts(**kw):
+        d = {"type": "set", "cacheType": "ranked", "cacheSize": 50000,
+             "min": 0, "max": 0, "base": 0, "bitDepth": 1, "timeQuantum": "",
+             "noStandardView": False, "keys": False}
+        d.update(kw)
+        return d
+
+    fields = {n: opts() for n in ("f", "g", "s", "u", "k")}
+    fields["v"] = opts(type="int", min=BSI_MIN, max=BSI_MAX,
+                       bitDepth=BSI_DEPTH)
+    fields["t"] = opts(type="time", timeQuantum="YMD")
+    fields["m"] = opts(type="mutex")
+    fields["b"] = opts(type="bool")
+    return {"indexes": [{
+        "name": "i", "options": {"keys": False, "trackExistence": True},
+        "fields": [{"name": n, "options": o} for n, o in sorted(
+            fields.items())],
+        "shardWidth": width}]}
+
+
+def ft_moves(ck, http: Http, ft: dict, rng, n_cols: int) -> dict:
+    """FT_MUTEX_MOVES (row, column) pairs through /import into m (each a
+    per-bit mutex write: the column leaves its row), a PQL Set moving a
+    column to m row 7 and a Set(b=true) on a false column; the oracle
+    takes every write.  Returns the host-clock times."""
+    m, b = ft["m"], ft["b"]
+    cols = rng.choice(n_cols, size=FT_MUTEX_MOVES, replace=False)
+    rows = rng.integers(1, 9, size=FT_MUTEX_MOVES)
+    body = json.dumps({"rowIDs": rows.tolist(),
+                       "columnIDs": cols.tolist()}).encode()
+    t0 = time.perf_counter()
+    st, resp = http.post("/index/i/field/m/import", body)
+    import_ms = (time.perf_counter() - t0) * 1e3
+    check(st == 200, f"mutex import: HTTP {st} {resp[:200]!r}")
+    w, bit = cols >> 5, np.uint32(1) << (cols & 31).astype(np.uint32)
+    for r, words in m.items():
+        flat = words.reshape(-1)
+        np.bitwise_and.at(flat, w, ~bit)
+        np.bitwise_or.at(flat, w[rows == r], bit[rows == r])
+    # a PQL Set moves one more column to row 7, another flips b to true
+    flat7 = m[7].reshape(-1)
+    col = int(next(c for c in range(n_cols)
+                   if not (flat7[c >> 5] >> np.uint32(c & 31)) & 1))
+    bcol = int(np.flatnonzero(np.unpackbits(
+        b[0].reshape(-1)[:4096].view(np.uint8), bitorder="little"))[0])
+    res, _ms = http.query(f"Set({col}, m=7) Set({bcol}, b=true)")
+    check(res == [True, True], f"the mutex and bool Sets: {res}")
+    for r, words in m.items():
+        flat = words.reshape(-1)
+        one = np.uint32(1) << np.uint32(col & 31)
+        flat[col >> 5] = (flat[col >> 5] | one if r == 7
+                          else flat[col >> 5] & ~one)
+    one = np.uint32(1) << np.uint32(bcol & 31)
+    b[0].reshape(-1)[bcol >> 5] &= ~one
+    b[1].reshape(-1)[bcol >> 5] |= one
+    return {"import_ms": import_ms, "bits": FT_MUTEX_MOVES}
+
+
+def ft_admin(ck, srv, http: Http, ft: dict, rng, width: int,
+             out: dict) -> None:
+    """The schema and admin routes on the served index."""
+    # GET /schema, timed
+    lat = []
+    for _ in range(1 + FT_RUNS):
+        t0 = time.perf_counter()
+        st, body = ft_get(http, "/schema")
+        lat.append((time.perf_counter() - t0) * 1e3)
+        check(st == 200 and json.loads(body) == ft_schema(width),
+              f"GET /schema: HTTP {st} {body[:600]!r}")
+    out["schema_read_ms"] = spread(lat[1:])
+    log(f"GET /schema = the expected schema; warm {fmt(out['schema_read_ms'])}")
+    # GET /export of one mutex shard: the oracle's CSV
+    s = FT_EXPORT_SHARD
+    lines = []
+    for r in sorted(ft["m"]):
+        offs = np.flatnonzero(np.unpackbits(ft["m"][r][s].view(np.uint8),
+                                            bitorder="little"))
+        lines.append("".join(f"{r},{s * width + int(o)}\n" for o in offs))
+    want = "".join(lines).encode()
+    t0 = time.perf_counter()
+    st, body = ft_get(http, f"/export?index=i&field=m&shard={s}")
+    out["export_ms"] = (time.perf_counter() - t0) * 1e3
+    check(st == 200 and body == want,
+          f"GET /export m shard {s}: HTTP {st}, {len(body)} bytes, the "
+          f"oracle's {len(want)}")
+    log(f"GET /export?field=m&shard={s}: {len(body)} bytes = the oracle's "
+        f"CSV, in {out['export_ms']:.0f} ms")
+    # POST /recalculate-caches, then an unfiltered TopN(m) from the ranks
+    k0 = ck.launch_counts()
+    st, body = http.post("/recalculate-caches", b"")
+    check(st == 200 and body == b"{}", f"recalculate-caches: {st} {body!r}")
+    res, ms = http.query("TopN(m, n=8)")
+    check(res == [topn_json({r: popcounts(w) for r, w in ft["m"].items()},
+                            8)], f"TopN(m) after recalculate: {res}")
+    check(ck.launch_counts() == k0, "the ranked TopN launched a kernel")
+    log(f"POST /recalculate-caches, then TopN(m, n=8) = oracle in "
+        f"{ms:.2f} ms, no launch")
+    # a scratch field, deleted and recreated with different bits
+    n_cols = ft["m"][1].size * 32
+    for i, n in enumerate(FT_SCRATCH_BITS):
+        check(http.post("/index/i/field/x", b"{}")[0] == 200,
+              f"create field x ({i})")
+        cols = rng.choice(n_cols, size=n, replace=False)
+        st, resp = http.post("/index/i/field/x/import", json.dumps(
+            {"rowIDs": [1] * n, "columnIDs": cols.tolist()}).encode())
+        check(st == 200, f"import into x: HTTP {st} {resp[:200]!r}")
+        for flags in ("", "?nocoalesce=true", "?nodelta=1"):
+            res, _ms = http.query("Count(Row(x=1))", flags)
+            check(res == [n], f"Count(Row(x=1)){flags} after import {i}: "
+                              f"{res}, not {n}")
+        xs = np.zeros(n_cols // 32, dtype=np.uint32)
+        np.bitwise_or.at(xs, cols >> 5,
+                         np.uint32(1) << (cols & 31).astype(np.uint32))
+        want = popcounts(xs & ft["f1"].reshape(-1))
+        for flags in ("", "?nocoalesce=true"):
+            res, _ms = http.query("Count(Intersect(Row(x=1), Row(f=1)))",
+                                  flags)
+            check(res == [want], f"x & f1{flags} after import {i}: {res}, "
+                                 f"not {want}")
+        if i == 0:
+            check(ft_delete(http, "/index/i/field/x") == 200, "DELETE x")
+            check(ft_delete(http, "/index/i/field/x") == 404,
+                  "DELETE x twice")
+            check(srv.holder.index("i").field("x") is None, "x survived")
+    check(ft_delete(http, "/index/i/field/x") == 200, "DELETE x (2)")
+    log(f"field x: created, {FT_SCRATCH_BITS[0]} bits counted, deleted, "
+        f"recreated, {FT_SCRATCH_BITS[1]} other bits counted, deleted")
+    for path in ("/", "/version", "/info", "/hosts", "/index", "/index/i",
+                 "/debug/containers"):
+        st, body = ft_get(http, path)
+        check(st == 200, f"GET {path}: HTTP {st} {body[:200]!r}")
+    st, body = ft_get(http, "/info")
+    check(json.loads(body)["cpuType"] == f"{srv.device.type}+host",
+          f"/info: {body!r}")
+    log("GET /, /version, /info, /hosts, /index, /index/i and "
+        "/debug/containers: 200")
+
+
+def phase_field_types(ck, srv, http: Http, roaring, data: dict, cpr: int,
+                      words: int, seed: int) -> dict:
+    """Mutex, bool and time fields and the schema and admin routes on the
+    served index (all shards):
+
+    (a) t (time, quantum YMD): rows 1-2 at ~8 %, each bit on one of
+        FT_DAYS days across a month boundary, so 11 views, loaded through
+        ``POST /import-roaring/{shard}`` with a JSON ``{"views": ...}``
+        body; m (mutex): every column in one of rows 1-8; b (bool): true
+        on 30 %, false on 50 %.  The wire refuses roaring into m and b
+        (400, as the reference); they load through the in-process
+        ``Field.import_roaring``, their rows disjoint by construction;
+    (b) time-range Counts (a 3-day cover, whole months, an open end, a
+        range with no view), one inside an Intersect, a ranged Rows, a
+        filtered TopN over t, TopN over m (K4 when filtered), a coalesced
+        Count over m (K3) and the same with ?nocoalesce=true (K2), bool
+        Counts and GroupBy(Rows(m), Rows(b)) (K5): each once cold and
+        FT_RUNS times warm, every answer equal to the numpy oracle and
+        every kernel launched exactly at its sites;
+    (c) a PQL Set that creates a new day view: the open-ended Count
+        includes it;
+    (d) a mutex /import of FT_MUTEX_MOVES bits that moves columns, a Set
+        on m and a Set(b=true) on a false column; every query again;
+    (e) the admin routes: GET /schema, GET /export of an m shard, POST
+        /recalculate-caches, a field deleted and recreated with other
+        bits, and the read-only routes."""
+    import base64
+
+    width = words * 32
+    n_cols = N_SHARDS * width
+    t0 = time.perf_counter()
+    ft = field_type_data(seed, N_SHARDS, words)
+    views = ft_time_views(ft)
+    host = sum(a.nbytes for a in {id(a): a for rows in views.values()
+                                  for a in rows.values()}.values())
+    log(f"field-types data: t {len(views)} views, m 8 rows, b 2 rows on "
+        f"{N_SHARDS} shards, {host >> 20} MiB for t on the host, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, opts in FT_FIELDS:
+        check(http.post(f"/index/i/field/{name}", json.dumps(
+            {"options": opts}).encode())[0] == 200, f"create field {name}")
+    t0 = time.perf_counter()
+    sent = 0
+    for s in range(N_SHARDS):
+        body = json.dumps({"views": {
+            vn: base64.b64encode(roaring_payload(roaring, rows, s, cpr)
+                                 ).decode()
+            for vn, rows in views.items()}}).encode()
+        sent += len(body)
+        st, resp = http.post(f"/index/i/field/t/import-roaring/{s}", body)
+        check(st == 200, f"import-roaring t shard {s}: HTTP {st} "
+                         f"{resp[:200]!r}")
+    t1 = time.perf_counter()
+    merged = compact_all()
+    log(f"import: field t, {N_SHARDS} JSON view payloads, {sent} bytes, in "
+        f"{t1 - t0:.1f} s, merged by one compactor scan in "
+        f"{merged['ms']:.0f} ms")
+    del views
+    for name in ("m", "b"):
+        st, resp = http.post(f"/index/i/field/{name}/import-roaring/0",
+                             b'{"views": {"": ""}}')
+        check(st == 400 and b"only supported for set and time fields" in resp,
+              f"import-roaring into {name}: HTTP {st} {resp!r}")
+        field = srv.holder.index("i").field(name)
+        t0 = time.perf_counter()
+        for s in range(N_SHARDS):
+            field.import_roaring(s, roaring_payload(roaring, ft[name], s,
+                                                    cpr))
+        log(f"import: field {name} ({len(ft[name])} rows) through "
+            f"Field.import_roaring in {time.perf_counter() - t0:.1f} s")
+    ft["f1"] = data["f"][1]
+    t0 = time.perf_counter()
+    wants = ft_oracles(ft, ft["f1"])
+    log(f"field-types oracles in {time.perf_counter() - t0:.1f} s")
+    queries = ft_queries(N_SHARDS)
+    rng = np.random.default_rng(seed + 43)
+
+    out: dict = {"queries": {}}
+    # ---- the field-types path: counts zeroed just before, read just after
+    ck.reset_launch_counts()
+    ft_run(ck, http, queries, wants, 1 + FT_RUNS, out["queries"])
+    # (c) a new day view
+    flat = ft["days"][(2, FT_NEW_DAY)].reshape(-1)
+    col = int(rng.integers(0, n_cols))
+    while any((ft["days"][(2, d)].reshape(-1)[col >> 5] >> np.uint32(
+            col & 31)) & 1 for d in range(FT_DAYS)):
+        col += 1
+    res, _ms = http.query(f"Set({col}, t=2, 2024-02-05T10:00)")
+    check(res == [True], f"the new day view's Set: {res}")
+    flat[col >> 5] |= np.uint32(1) << np.uint32(col & 31)
+    wants = ft_oracles(ft, ft["f1"])
+    ft_run(ck, http, [q for q in queries if q[0] in ("time_open",
+                                                    "time_topn")],
+           wants, 2, out["queries"], tag="_new_day")
+    # (d) mutex moves
+    out["moves"] = ft_moves(ck, http, ft, rng, n_cols)
+    wants = ft_oracles(ft, ft["f1"])
+    ft_run(ck, http, queries, wants, 2, out["queries"], tag="_after_moves")
+    out["launches"] = ck.launch_counts()
+    # ---- end of the field-types path
+    log(f"field-types path launches: {out['launches']}; the mutex import "
+        f"of {FT_MUTEX_MOVES} bits in {out['moves']['import_ms']:.0f} ms")
+    for k in ("gathered_count_and", "vm_counts", "row_counts_masked",
+              "masked_matrix_counts"):
+        check(out["launches"][k] > 0, f"{k} never launched on the "
+                                      f"field-types path")
+    # (e) the admin routes
+    ft_admin(ck, srv, http, ft, rng, width, out)
+    q = out["queries"]
+    out["times"] = {"time_range_count_ms": q["time_3day"]["warm_ms"],
+                    "mutex_topn_ms": q["mutex_topn"]["warm_ms"],
+                    "mutex_topn_filtered_ms": q["mutex_topn_f"]["warm_ms"],
+                    "groupby_ms": q["groupby_mb"]["warm_ms"],
+                    "schema_read_ms": out["schema_read_ms"]}
+    log("field-types times (host clock): " + "; ".join(
+        f"{k} {fmt(v)}" for k, v in out["times"].items()))
+    return out
+
+
 HIT_KERNELS = ("gathered_count_and", "vm_counts", "vm_counts_kinds",
                "row_counts_masked", "masked_matrix_counts")
 #: Counts that read field g alone: a write to f leaves their stamps
@@ -3007,7 +3469,8 @@ def run_paths(torch, ck, bm, kp, containers, tape, Server, roaring,
               seed: int, card: dict) -> dict:
     """The server on cuda: the K2 path, the lone query, the coalesced
     path, the scan path, the BSI path, the kinds leg, the ingest phase,
-    then the timings on their own inputs."""
+    the field-types phase, the cache phase, then the timings on their own
+    inputs."""
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
     words = SHARD_WIDTH // 32
@@ -3065,6 +3528,8 @@ def run_paths(torch, ck, bm, kp, containers, tape, Server, roaring,
         out["ingest"] = phase_ingest(ck, tape, containers, srv, http,
                                      roaring, data,
                                      out["kinds"].pop("data"), seed)
+        out["field_types"] = phase_field_types(ck, srv, http, roaring, data,
+                                               cpr, words, seed)
         out["cache"] = phase_cache(ck, srv, data, card)
         out["k3"] = phase_k3_time(torch, ck, tape,
                                   out["coalesced"].pop("flush"), card)
@@ -3181,6 +3646,7 @@ def main(argv: list[str] | None = None) -> int:
                     "k1_us": out["k1"]["spread_us"],
                     "kinds": out["kinds"],
                     "ingest": out["ingest"],
+                    "field_types": out["field_types"],
                     "cache": out["cache"],
                     "k3_kinds_us": out["k3k"]["spread_us"],
                     "k3_kinds_shape": out["k3k"]["shape"],
@@ -3200,14 +3666,16 @@ def main(argv: list[str] | None = None) -> int:
                              ("all_slots_bound_ms", "host_plan_us")),
                             ("vm_counts_kinds_dfuse", "k3k_fixed_dfuse",
                              ("all_slots_bound_ms", "host_plan_us")))}}))
-    # every kernel's launches on its own paths, plus the cache phase's
-    # misses
+    # every kernel's launches on its own paths, plus the field-types
+    # phase's and the cache phase's misses
     cache_k = out["cache"]["launches"]
+    ft_k = out["field_types"]["launches"]
     log(json.dumps({"kernels": [
         kernel_line("gathered_count_and",
                     "pilosa_tpu_torch/ops/csrc/gathered_count_and.cu",
                     "pilosa_tpu/ops/pallas_kernels.py:244",
                     out["launches"]["gathered_count_and"]
+                    + ft_k["gathered_count_and"]
                     + cache_k["gathered_count_and"],
                     max(k2_err, out["k2"]["max_abs_err"]), out["k2"]),
         # K3 and K3-kinds: launches on their own paths plus the ingest
@@ -3216,7 +3684,7 @@ def main(argv: list[str] | None = None) -> int:
                     "pilosa_tpu/ops/pallas_kernels.py:454",
                     out["coalesced"]["k3_launches"]
                     + out["ingest"]["k3"]["launches"]
-                    + cache_k["vm_counts"],
+                    + ft_k["vm_counts"] + cache_k["vm_counts"],
                     max(k3_err, out["k3"]["max_abs_err"],
                         out["k3_fixed"]["max_abs_err"],
                         out["k3_fixed16"]["max_abs_err"],
@@ -3234,12 +3702,14 @@ def main(argv: list[str] | None = None) -> int:
                     "pilosa_tpu_torch/ops/csrc/row_counts_masked.cu",
                     "pilosa_tpu/ops/pallas_kernels.py:145",
                     out["scans"]["launches"]["row_counts_masked"]
+                    + ft_k["row_counts_masked"]
                     + cache_k["row_counts_masked"],
                     max(k4_err, out["k4"]["max_abs_err"]), out["k4"]),
         kernel_line("masked_matrix_counts",
                     "pilosa_tpu_torch/ops/csrc/masked_matrix_counts.cu",
                     "pilosa_tpu/ops/pallas_kernels.py:652",
                     out["scans"]["launches"]["masked_matrix_counts"]
+                    + ft_k["masked_matrix_counts"]
                     + cache_k["masked_matrix_counts"],
                     max(k5_err, out["k5"]["max_abs_err"]), out["k5"]),
         kernel_line("bsi_compare", "pilosa_tpu_torch/ops/csrc/bsi_compare.cu",

@@ -1,22 +1,30 @@
 """API facade: the actions the HTTP handler exposes, on one node.
 
-Port of the single-node part of pilosa_tpu/api.py: query, index and
-field creation (set and int fields, and, as in the reference, fields of
-a type string it does not know, served as set fields), bit import,
-value import and roaring import into set fields.  The cluster state
-machine, key translation and replica fan-out are not part of the port
-yet; the node is always NORMAL.
+Port of the single-node part of pilosa_tpu/api.py: query; the schema
+(``schema``, ``apply_schema``) and index and field creation and deletion
+for every field type the reference creates (set, int, time, mutex and
+bool, and, as in the reference, a type string it does not know, served
+as a set field); bit, value and roaring import; the CSV export; and the
+node's admin answers (``hosts``, ``info``, ``version``,
+``recalculate_caches``) for the one local node, as the reference answers
+with its cluster off (pilosa_tpu/api.py:221-262, 510-567).  The cluster
+state machine, key translation and replica fan-out are not part of the
+port yet; the node is always NORMAL.
 """
 
 from __future__ import annotations
 
+import io
+
 import numpy as np
 
-from pilosa_tpu_torch.models.field import (UNSERVED_TYPES, FieldOptions,
-                                           FieldType)
+from pilosa_tpu_torch import VERSION
+from pilosa_tpu_torch.models.field import FieldOptions, FieldType
 from pilosa_tpu_torch.models.index import IndexOptions
-from pilosa_tpu_torch.models.view import VIEW_STANDARD
+from pilosa_tpu_torch.models.view import VIEW_BSI_PREFIX, VIEW_STANDARD
 from pilosa_tpu_torch.parallel.executor import ExecOptions
+from pilosa_tpu_torch.runtime import resultcache
+from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
 
 class ApiError(Exception):
@@ -35,6 +43,8 @@ class API:
     def __init__(self, holder, executor):
         self.holder = holder
         self.executor = executor
+        # the node's address, set by the server once its handler listens
+        self.uri = ""
 
     def query(self, index: str, pql, shards=None,
               exclude_columns: bool = False, containers: bool = True,
@@ -45,6 +55,24 @@ class API:
                           coalesce=coalesce, containers=containers, vm=vm,
                           delta=delta, cache=cache)
         return self.executor.execute(index, pql, opt=opt)
+
+    # ------------------------------------------------------------- schema
+
+    def schema(self) -> list[dict]:
+        return self.holder.schema()
+
+    def apply_schema(self, schema: list[dict]) -> None:
+        """Idempotent schema merge (api.go ApplySchema): the indexes and
+        fields that do not exist yet are created.  Keys, which the port
+        does not have, are refused before anything is created."""
+        for idesc in schema:
+            if (IndexOptions.from_dict(idesc.get("options", {})).keys
+                    or any(FieldOptions.from_dict(
+                        fd.get("options", {})).keys
+                           for fd in idesc.get("fields", []))):
+                raise ApiError("string keys are not supported by this port "
+                               "yet")
+        self.holder.apply_schema(schema)
 
     def index(self, name: str):
         idx = self.holder.index(name)
@@ -59,6 +87,13 @@ class API:
             raise ApiError("string keys are not supported by this port yet")
         return self.holder.create_index(name, options)
 
+    def delete_index(self, name: str) -> None:
+        """Delete an index, its files and every result-cache entry of it
+        (the cached stacks and pools go with its fields)."""
+        self.index(name)
+        self.holder.delete_index(name)
+        resultcache.cache().invalidate_index(self.holder.uid, name)
+
     def field(self, index: str, name: str):
         f = self.index(index).field(name)
         if f is None:
@@ -71,15 +106,19 @@ class API:
         if idx.field(name) is not None:
             raise ConflictError(f"field already exists: {name}")
         options = options or FieldOptions()
-        # a type string the reference does not know is stored as given
-        # and served as a set field, as the reference does
-        if options.type in UNSERVED_TYPES:
-            raise ApiError(f"{options.type} fields are not supported by "
-                           f"this port yet")
         if options.keys:
             raise ApiError("fields with keys are not supported by this port "
                            "yet")
         return idx.create_field(name, options)
+
+    def delete_field(self, index: str, name: str) -> None:
+        """Delete a field, its files, its device forms and every result-
+        cache entry of its index."""
+        self.field(index, name)
+        self.index(index).delete_field(name)
+        resultcache.cache().invalidate_index(self.holder.uid, index)
+
+    # ------------------------------------------------------------- import
 
     def import_bits(self, index: str, field: str, rows, cols,
                     timestamps=None, row_keys=None, col_keys=None,
@@ -110,22 +149,71 @@ class API:
 
     def import_roaring(self, index: str, field: str, shard: int,
                        views: dict[str, bytes], clear: bool = False) -> None:
-        """Merge serialized roaring bitmaps into one shard's fragments
-        (pilosa_tpu/api.py:470): a set field's standard view (named
-        ``""`` or ``"standard"``), or a time field's.  Like the reference,
-        every other field type is refused, and the existence field is
+        """Merge serialized roaring bitmaps, one per named view (``""`` is
+        the standard view), into one shard's fragments of a set or time
+        field (pilosa_tpu/api.py:470-499).  Every other field type is
+        refused as the reference refuses it, and the existence field is
         left as it is.  An int field's planes load in process through
         ``Field.import_roaring`` with ``view="bsig_<field>"``."""
         f = self.field(index, field)
         if f.options.type not in (FieldType.SET, FieldType.TIME):
             raise ApiError("roaring import is only supported for set "
                            "and time fields")
-        for vname in views:
-            if vname not in ("", VIEW_STANDARD):
-                raise ApiError(f"view {vname!r} of field {field!r} is not "
-                               f"supported by this port yet")
         for vname, data in views.items():
-            f.import_roaring(shard, data, clear=clear, view=VIEW_STANDARD)
+            f.import_roaring(shard, data, clear=clear,
+                             view=vname or VIEW_STANDARD)
+
+    # ------------------------------------------------------------- export
+
+    def export_csv(self, index: str, field: str, shard: int,
+                   w: io.TextIOBase) -> None:
+        """``row,col`` lines of one shard's standard view, rows ascending
+        and columns ascending within a row (api.go:500 API.ExportCSV;
+        pilosa_tpu/api.py:510)."""
+        self.index(index)
+        f = self.field(index, field)
+        frag = f.fragment(shard)
+        if frag is None:
+            return
+        base = shard * SHARD_WIDTH
+        for row_id in frag.row_ids():
+            words = frag.row(row_id)
+            offs = np.nonzero(np.unpackbits(words.view(np.uint8),
+                                            bitorder="little"))[0]
+            w.write("".join(f"{row_id},{base + int(o)}\n" for o in offs))
+
+    # -------------------------------------------------------------- admin
+
+    def hosts(self) -> list[dict]:
+        """The one local node, as the reference lists it with its cluster
+        off."""
+        return [{"id": self.holder.node_id, "uri": self.uri,
+                 "isCoordinator": True, "state": "READY"}]
+
+    def recalculate_caches(self) -> None:
+        """Recompute every fragment's TopN rank cache (reference
+        API.RecalculateCaches, api.go:1139; BSI views have none)."""
+        for idx in list(self.holder.indexes.values()):
+            for f in list(idx.fields.values()):
+                for vname, view in list(f.views.items()):
+                    if vname.startswith(VIEW_BSI_PREFIX):
+                        continue
+                    for frag in list(view.fragments.values()):
+                        frag.recalculate_cache()
+
+    def info(self) -> dict:
+        """The node's shape (pilosa_tpu/api.py:551), with ``cpuType``
+        naming the device it serves on."""
+        return {
+            "shardWidth": SHARD_WIDTH,
+            "memory": None,
+            "cpuType": f"{self.holder.device.type}+host",
+            "cpuPhysicalCores": None,
+            "cpuLogicalCores": None,
+        }
+
+    def version(self) -> str:
+        return VERSION
 
     def state(self) -> str:
         return "NORMAL"

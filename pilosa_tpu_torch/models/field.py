@@ -1,6 +1,6 @@
 """Field: a set of rows over an index's columns.
 
-Port of pilosa_tpu/models/field.py for ``set`` fields: metadata and
+Port of pilosa_tpu/models/field.py for every field type: metadata and
 shard-list files in the reference's format, bit writes and bulk import
 into the standard view, and the two device forms of a row across a shard
 set that the fused executor reads:
@@ -39,14 +39,21 @@ with the reference's predicate classification and its divergence at a
 GT exactly at the minimum), and the fused path's operands:
 ``device_plane_stack`` (every shard's planes in one int32 [S, 2 + depth,
 words] tensor, cached in the same dict) and ``device_range_stack`` (a
-range row over the stack, one K6 launch per compare).  The other field
-types (time, mutex, bool) are not part of the port yet: their options
-still load, so a data directory holding them opens, but the API refuses
-to create them.
-"""
+range row over the stack, one K6 launch per compare).
+
+``mutex`` and ``bool`` fields (pilosa_tpu/models/field.py:210-226, 326)
+keep one row per column: their views pass the ``mutex`` flag to every
+fragment, a bool field takes rows 0 (false) and 1 (true) only, and a bulk
+import writes them bit by bit.  ``time`` fields (pilosa_tpu/models/
+timequantum.py) write every bit with a timestamp into one view per
+quantum unit as well (``standard_2024``, ``standard_202401``, ...), and
+the standard view too unless ``no_standard_view``; ``row_time`` unions a
+range's covering views on one shard and ``device_time_row_stack`` across
+a shard set, on the host, into one cached device stack."""
 
 from __future__ import annotations
 
+import datetime as _dt
 import json
 import os
 import re
@@ -56,6 +63,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.models.timequantum import (TimeQuantum, views_by_time,
+                                                 views_by_time_range)
 from pilosa_tpu_torch.models.view import VIEW_BSI_PREFIX, VIEW_STANDARD, View
 from pilosa_tpu_torch.ops import bitmap as bm
 from pilosa_tpu_torch.ops import bsi as bsi_ops
@@ -72,20 +81,12 @@ class FieldType:
     BOOL = "bool"
 
 
-#: the field types whose machinery the port does not have yet
-UNSERVED_TYPES = (FieldType.TIME, FieldType.MUTEX, FieldType.BOOL)
-
-
-def is_set_like(options) -> bool:
-    """True for a set field and for a type string the reference does not
-    know: its FieldOptions stores any type (pilosa_tpu/models/field.py:
-    178-190) and serves such a field's standard-view rows as a set
-    field's."""
-    return options.type not in (FieldType.INT,) + UNSERVED_TYPES
-
-
 DEFAULT_CACHE_TYPE = "ranked"
 DEFAULT_CACHE_SIZE = 50000
+
+#: row ids of a bool field (reference fragment.go:87-88)
+FALSE_ROW_ID = 0
+TRUE_ROW_ID = 1
 
 _NAME_RE = re.compile(r"^[a-z][a-z0-9_-]{0,63}$")
 # internal names (the hidden existence field) carry a leading underscore
@@ -225,6 +226,22 @@ class FieldOptions:
         return cls(type=FieldType.INT, min=lo, max=hi, base=base,
                    bit_depth=depth)
 
+    @classmethod
+    def time_field(cls, quantum: str, no_standard_view: bool = False
+                   ) -> "FieldOptions":
+        return cls(type=FieldType.TIME, time_quantum=str(TimeQuantum(quantum)),
+                   no_standard_view=no_standard_view)
+
+    @classmethod
+    def mutex_field(cls, cache_type: str = DEFAULT_CACHE_TYPE,
+                    cache_size: int = DEFAULT_CACHE_SIZE) -> "FieldOptions":
+        return cls(type=FieldType.MUTEX, cache_type=cache_type,
+                   cache_size=cache_size)
+
+    @classmethod
+    def bool_field(cls) -> "FieldOptions":
+        return cls(type=FieldType.BOOL, cache_type="none", cache_size=0)
+
 
 class Field:
     #: device stacks and pools kept per field (oldest evicted first)
@@ -244,6 +261,8 @@ class Field:
         self._device_cache: dict = {}
         # ("matrix", shards) -> device_matrix_stack entry
         self._matrix_stack_cache: dict = {}
+        # (view names, their parsed times): time_view_times' memo
+        self._view_times_memo = None
         self._lock = threading.RLock()
         if path is not None:
             os.makedirs(path, exist_ok=True)
@@ -289,8 +308,17 @@ class Field:
                                     **self._view_opts())
 
     def _view_opts(self) -> dict:
-        return {"device": self.device, "cache_type": self.options.cache_type,
+        return {"device": self.device, "mutex": self._is_mutex_like,
+                "cache_type": self.options.cache_type,
                 "cache_size": self.options.cache_size}
+
+    @property
+    def _is_mutex_like(self) -> bool:
+        return self.options.type in (FieldType.MUTEX, FieldType.BOOL)
+
+    @property
+    def time_quantum(self) -> TimeQuantum:
+        return TimeQuantum(self.options.time_quantum)
 
     @property
     def has_standard_rows(self) -> bool:
@@ -335,15 +363,41 @@ class Field:
 
     # ------------------------------------------------------------- bit ops
 
-    def set_bit(self, row: int, col: int) -> bool:
-        changed = self.create_view_if_not_exists(VIEW_STANDARD).set_bit(
-            row, col)
+    def set_bit(self, row: int, col: int,
+                timestamp: _dt.datetime | None = None) -> bool:
+        """Set a bit in the standard view and, with a timestamp, in one
+        time view per quantum unit (reference Field.SetBit, field.go:927;
+        pilosa_tpu/models/field.py:388-405).  Every check runs before any
+        write."""
+        if self.options.type == FieldType.INT:
+            raise ValueError(f"field {self.name} is an int field; use "
+                             f"set_value")
+        if (self.options.type == FieldType.BOOL
+                and row not in (FALSE_ROW_ID, TRUE_ROW_ID)):
+            raise ValueError("bool field rows must be 0 or 1")
+        if timestamp is not None and self.options.type != FieldType.TIME:
+            raise ValueError(f"field {self.name} has no time quantum")
+        changed = False
+        if not (self.options.type == FieldType.TIME
+                and self.options.no_standard_view):
+            changed |= self.create_view_if_not_exists(VIEW_STANDARD).set_bit(
+                row, col)
+        if timestamp is not None:
+            for name in views_by_time(VIEW_STANDARD, timestamp,
+                                      self.time_quantum):
+                changed |= self.create_view_if_not_exists(name).set_bit(
+                    row, col)
         self._note_shards((col // SHARD_WIDTH,))
         return changed
 
     def clear_bit(self, row: int, col: int) -> bool:
-        view = self.view(VIEW_STANDARD)
-        return False if view is None else view.clear_bit(row, col)
+        """Clear a bit from the standard view and every time view
+        (reference Field.ClearBit, field.go:967)."""
+        changed = False
+        for name, view in list(self.views.items()):
+            if name == VIEW_STANDARD or name.startswith(VIEW_STANDARD + "_"):
+                changed |= view.clear_bit(row, col)
+        return changed
 
     def fragment(self, shard: int):
         view = self.view(VIEW_STANDARD)
@@ -351,40 +405,76 @@ class Field:
 
     def import_bits(self, rows, cols, timestamps=None,
                     clear: bool = False) -> None:
-        """Bulk import of (row, col) bits: one ``import_positions`` per
-        shard (pilosa_tpu/models/field.py:1566).  ``timestamps`` are
-        length-checked; with no time quantum there is no time view to
-        add and only the standard view is written
-        (pilosa_tpu/models/field.py:1581-1582, 1650-1663)."""
+        """Bulk import of (row, col[, timestamp]) bits: positions grouped
+        by (view, shard), one ``import_positions`` per fragment
+        (pilosa_tpu/models/field.py:1566-1670).  A mutex or bool field
+        sets its bits one by one, so that each column keeps one row; a
+        timestamp adds the bit to its time views."""
         if len(rows) != len(cols):
             raise ValueError("rows and columns length mismatch")
         if timestamps is not None and len(timestamps) != len(rows):
             raise ValueError("timestamps length mismatch")
-        if (timestamps is not None and self.options.time_quantum
-                and any(t is not None for t in timestamps)):
-            raise ValueError("time views are not supported by this port "
-                             "yet")
+        if self.options.type == FieldType.INT:
+            raise ValueError(f"field {self.name} is an int field; use "
+                             f"import_values")
         max_row = ((1 << 63) - SHARD_WIDTH) // SHARD_WIDTH
-        try:
-            rows_np = np.asarray(rows, dtype=np.int64)
-            cols_np = np.asarray(cols, dtype=np.int64)
-        except OverflowError:
-            raise ValueError("row or column id out of range") from None
-        if len(rows_np) and (rows_np.min() < 0 or cols_np.min() < 0):
-            raise ValueError("negative row or column id in import")
-        if len(rows_np) and rows_np.max() > max_row:
-            raise ValueError("row id too large for position space")
-        pos = rows_np * SHARD_WIDTH + (cols_np % SHARD_WIDTH)
-        view = self.create_view_if_not_exists(VIEW_STANDARD)
+        max_col = (1 << 63) - 1
+
+        def check_pair(r: int, c: int) -> None:
+            if r < 0 or c < 0:
+                raise ValueError("negative row or column id in import")
+            if r > max_row:
+                raise ValueError("row id too large for position space")
+            if c > max_col:
+                raise ValueError("column id too large for position space")
+
+        if self._is_mutex_like and not clear:
+            for i, (r, c) in enumerate(zip(rows, cols)):
+                r, c = int(r), int(c)
+                check_pair(r, c)
+                self.set_bit(r, c, None if timestamps is None
+                             else timestamps[i])
+            return
+        # (view, shard) -> positions
+        by_frag: dict = {}
+        has_std = not (self.options.type == FieldType.TIME
+                       and self.options.no_standard_view)
+        if timestamps is None and has_std:
+            try:
+                rows_np = np.asarray(rows, dtype=np.int64)
+                cols_np = np.asarray(cols, dtype=np.int64)
+            except OverflowError:
+                raise ValueError("row or column id out of range") from None
+            if len(rows_np) and (rows_np.min() < 0 or cols_np.min() < 0):
+                raise ValueError("negative row or column id in import")
+            if len(rows_np) and rows_np.max() > max_row:
+                raise ValueError("row id too large for position space")
+            pos = rows_np * SHARD_WIDTH + (cols_np % SHARD_WIDTH)
+            for shard, sel in bm.group_indices(cols_np // SHARD_WIDTH).items():
+                by_frag[(VIEW_STANDARD, shard)] = pos[sel]
+        else:
+            for i, (r, c) in enumerate(zip(rows, cols)):
+                r, c = int(r), int(c)
+                check_pair(r, c)
+                shard = c // SHARD_WIDTH
+                pos = r * SHARD_WIDTH + (c % SHARD_WIDTH)
+                if has_std:
+                    by_frag.setdefault((VIEW_STANDARD, shard), []).append(pos)
+                ts = None if timestamps is None else timestamps[i]
+                if ts is not None:
+                    for name in views_by_time(VIEW_STANDARD, ts,
+                                              self.time_quantum):
+                        by_frag.setdefault((name, shard), []).append(pos)
         done: set[int] = set()
         try:
-            for shard, sel in bm.group_indices(cols_np // SHARD_WIDTH).items():
-                frag = view.create_fragment_if_not_exists(shard)
+            for (vname, shard), positions in by_frag.items():
+                frag = self.create_view_if_not_exists(
+                    vname).create_fragment_if_not_exists(int(shard))
                 if clear:
-                    frag.import_positions((), pos[sel])
+                    frag.import_positions((), positions)
                 else:
-                    frag.import_positions(pos[sel])
-                done.add(shard)
+                    frag.import_positions(positions)
+                done.add(int(shard))
         finally:
             self._note_shards(done)
 
@@ -664,6 +754,80 @@ class Field:
                     next(iter(self._matrix_stack_cache)))
             self._matrix_stack_cache[key] = entry
         return entry
+
+    # ------------------------------------------------------- time views
+
+    def time_view_times(self) -> list:
+        """The times encoded in this field's time-view names, memoized per
+        view-name set (pilosa_tpu/models/field.py:1243): the executor
+        clamps an open range to them."""
+        with self._lock:
+            names = tuple(self.views)
+            memo = self._view_times_memo
+            if memo is not None and memo[0] == names:
+                return memo[1]
+            times = []
+            for name in names:
+                part = name.rsplit("_", 1)[-1]
+                if part.isdigit():
+                    fmt = {4: "%Y", 6: "%Y%m", 8: "%Y%m%d",
+                           10: "%Y%m%d%H"}.get(len(part))
+                    if fmt:
+                        times.append(_dt.datetime.strptime(part, fmt))
+            self._view_times_memo = (names, times)
+            return times
+
+    def row_time(self, row_id: int, shard: int, start, end
+                 ) -> np.ndarray | None:
+        """One shard's row unioned over the views covering [start, end)
+        (reference Field.RowTime; pilosa_tpu/models/field.py:1262-1277):
+        effective host words, or None when no covering view holds the
+        shard."""
+        if not self.time_quantum:
+            raise ValueError(f"field {self.name} has no time quantum")
+        out = None
+        for name in views_by_time_range(VIEW_STANDARD, start, end,
+                                        self.time_quantum):
+            view = self.view(name)
+            frag = None if view is None else view.fragment(shard)
+            if frag is None:
+                continue
+            words = frag.row(row_id)
+            out = words if out is None else (out | words)
+        return out
+
+    def device_time_row_stack(self, row_id: int, shards: tuple[int, ...],
+                              view_names: tuple[str, ...]) -> torch.Tensor:
+        """One row unioned over a set of time views across ``shards``, as
+        one int32 [n_shards, words] stack on the device: the fused
+        time-range Row's operand (pilosa_tpu/models/field.py:576).  The
+        union runs on the host over the fragments' effective words, so a
+        wide cover is one cache entry and one transfer.  Cached per (row,
+        shards, views); every contributing fragment's ``(uid, gen,
+        delta_seq)`` invalidates it."""
+        views = [self.view(vn) for vn in view_names]
+        grid = [[None if v is None else v.fragment(s) for v in views]
+                for s in shards]
+        gens = tuple(tuple(_frag_gen(fr) for fr in frags) for frags in grid)
+
+        def build() -> torch.Tensor:
+            stack = np.zeros((len(shards), bm.n_words(SHARD_WIDTH)),
+                             dtype=np.uint32)
+            for i, frags in enumerate(grid):
+                for fr in frags:
+                    if fr is None:
+                        continue
+                    with fr._lock:
+                        d = fr._delta
+                        arr = (fr.row(row_id) if d is not None
+                               and d.row_touched(row_id)
+                               else fr._rows.get(row_id))
+                        if arr is not None:
+                            np.bitwise_or(stack[i], arr, out=stack[i])
+            return bm.to_tensor(stack, self.device)
+
+        return self._cached(("time", row_id, shards, view_names), gens,
+                            build)
 
     # ------------------------------------------------------------ BSI
 
@@ -977,11 +1141,20 @@ class Field:
     # ---------------------------------------------------------- lifecycle
 
     def close(self) -> None:
+        """Close every fragment and let go of every device form this
+        field built: its own caches, and the coalescer's and the
+        container engine's memo entries over its container leaves."""
         for view in self.views.values():
             view.close()
         with self._lock:
+            uids = set()
+            for _gens, value in self._device_cache.values():
+                for leaf in (value if isinstance(value, tuple) else (value,)):
+                    if isinstance(leaf, ct.ContainerLeaf):
+                        uids.add(leaf.uid)
             self._device_cache.clear()
             self._matrix_stack_cache.clear()
+        ct.forget_leaves(uids)
 
     def snapshot(self) -> None:
         for view in self.views.values():

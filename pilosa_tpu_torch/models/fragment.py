@@ -34,8 +34,14 @@ and bumps ``_gen``.  ``row``/``row_ids``/``bit`` read effective content;
 every whole-matrix reader (``_stacked``: snapshot, ``device_matrix``, the
 TopN and Rows scans) merges first.  BSI views never take the delta path.
 
-Left out: time views and the background snapshot queue (snapshots here
-run inline, in one phase).  Device copies of rows across shards are built
+A fragment of a mutex or bool field (``mutex=True``,
+pilosa_tpu/models/fragment.py:116, 126) keeps one row per column:
+``set_bit`` clears the column in every other row first, one ``_WAL_CLEAR``
+record each before the ``_WAL_SET`` (pilosa_tpu/models/fragment.py:
+676-700), and its writes never land in a delta plane.
+
+Left out: the background snapshot queue (snapshots here run inline, in
+one phase).  Device copies of rows across shards are built
 by the owning Field, keyed on this fragment's ``(_uid, _gen)`` (base
 content) or ``(_uid, _gen, _delta_seq)`` (effective content).
 """
@@ -54,7 +60,7 @@ import torch
 from pilosa_tpu_torch import ingest
 from pilosa_tpu_torch.ingest import compactor
 from pilosa_tpu_torch.ingest.deltaplane import DeltaPlane
-from pilosa_tpu_torch.models.cache import TopNCache
+from pilosa_tpu_torch.models.cache import CACHE_TYPE_NONE, TopNCache
 from pilosa_tpu_torch.ops import bitmap as bm
 from pilosa_tpu_torch.ops import bsi as bsi_ops
 from pilosa_tpu_torch.ops import containers as ct
@@ -84,7 +90,7 @@ class Fragment:
     _UID = itertools.count(1)
 
     def __init__(self, path: str | None, index: str, field: str, view: str,
-                 shard: int, *, device: torch.device,
+                 shard: int, *, device: torch.device, mutex: bool = False,
                  max_op_n: int = DEFAULT_MAX_OP_N,
                  cache_type: str = "ranked", cache_size: int = 50000):
         self.path = path
@@ -93,6 +99,7 @@ class Fragment:
         self.field = field
         self.view = view
         self.shard = shard
+        self.mutex = mutex
         self.max_op_n = max_op_n
         self.width = SHARD_WIDTH
         self.n_words = bm.n_words(SHARD_WIDTH)
@@ -270,6 +277,10 @@ class Fragment:
             if self._wal is not None:
                 self._wal.close()
                 self._wal = None
+            # the host and device copies go with the fragment
+            self._stack_cache = self._matrix_cache = None
+            self._planes_cache = None
+            self._container_cache.clear()
             # the pending bits are in the WAL (a reopen replays them into
             # the base rows): only the compactor registration goes
             if self._delta is not None:
@@ -283,9 +294,11 @@ class Fragment:
     _BSI_VIEW_PREFIX = "bsig_"
 
     def _delta_eligible(self) -> bool:
-        """Whether writes land in the delta plane: [ingest] deltas on and
-        not a BSI view (the port has no mutex fragments)."""
-        return (ingest.config().delta_enabled
+        """Whether writes land in the delta plane: [ingest] deltas on, not
+        a mutex or bool fragment (a set clears the column in OTHER rows,
+        which an overlay of the new row alone would leave set in the
+        base), and not a BSI view."""
+        return (ingest.config().delta_enabled and not self.mutex
                 and not self.view.startswith(self._BSI_VIEW_PREFIX))
 
     def _delta_or_new(self) -> DeltaPlane:
@@ -413,13 +426,25 @@ class Fragment:
             # the base path merges a pending delta first, so that the
             # in-memory order of writes is the WAL's
             self._flush_delta_locked()
-            if not self._apply_set(row, off):
-                return False
-            self._wal_append(_WAL_REC.pack(_WAL_SET, row, off))
-            self._op_n += 1
-            self._gen += 1
+            changed = False
+            if self.mutex:
+                w = off // bm.WORD_BITS
+                b = np.uint32(1) << np.uint32(off % bm.WORD_BITS)
+                for other, arr in self._rows.items():
+                    if other != row and arr[w] & b:
+                        arr[w] &= ~b
+                        self._wal_append(_WAL_REC.pack(_WAL_CLEAR, other,
+                                                       off))
+                        self._op_n += 1
+                        changed = True
+            if self._apply_set(row, off):
+                self._wal_append(_WAL_REC.pack(_WAL_SET, row, off))
+                self._op_n += 1
+                changed = True
+            if changed:
+                self._gen += 1
             self._maybe_snapshot()
-            return True
+            return changed
 
     def clear_bit(self, row: int, col: int) -> bool:
         with self._lock:
@@ -763,6 +788,21 @@ class Fragment:
             if counts is None or not self.topn_cache.exact_for(n):
                 return None
             return counts
+
+    def recalculate_cache(self) -> None:
+        """Recompute the exact row counts into the TopN cache, a pending
+        delta merged first (``POST /recalculate-caches``;
+        pilosa_tpu/models/fragment.py:1221)."""
+        if self.topn_cache.cache_type == CACHE_TYPE_NONE:
+            return
+        with self._lock:
+            self._flush_delta_locked()
+            counts = {}
+            for r, arr in self._rows.items():
+                c = int(np.bitwise_count(arr).sum(dtype=np.uint64))
+                if c:
+                    counts[int(r)] = c
+            self.topn_cache.put(self._gen, counts)
 
     def cache_row_counts(self, counts: dict[int, int],
                          gen: int | None = None) -> None:

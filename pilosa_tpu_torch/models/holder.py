@@ -12,12 +12,14 @@ from __future__ import annotations
 import fcntl
 import itertools
 import os
+import shutil
 import threading
 import uuid
 
 import torch
 
 from pilosa_tpu_torch import device as devmod
+from pilosa_tpu_torch.models.field import FieldOptions
 from pilosa_tpu_torch.models.index import Index, IndexOptions
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
@@ -87,13 +89,38 @@ class Holder:
         with self._lock:
             if name in self.indexes:
                 raise ValueError(f"index already exists: {name}")
-            path = None if self.path is None else os.path.join(self.path,
-                                                                name)
-            idx = Index(path, name, self.device, options or IndexOptions())
-            self.indexes[name] = idx
-            return idx
+            return self._create_index(name, options)
+
+    def create_index_if_not_exists(self, name: str,
+                                   options: IndexOptions | None = None
+                                   ) -> Index:
+        with self._lock:
+            idx = self.indexes.get(name)
+            if idx is not None:
+                return idx
+            return self._create_index(name, options)
+
+    def _create_index(self, name: str, options: IndexOptions | None
+                      ) -> Index:
+        path = None if self.path is None else os.path.join(self.path, name)
+        idx = Index(path, name, self.device, options or IndexOptions())
+        self.indexes[name] = idx
+        return idx
+
+    def delete_index(self, name: str) -> None:
+        """Close the index, release its fields' device forms and remove
+        its directory (pilosa_tpu/models/holder.py:116)."""
+        with self._lock:
+            idx = self.indexes.pop(name, None)
+            if idx is None:
+                raise KeyError(f"index not found: {name}")
+            idx.close()
+            if idx.path is not None:
+                shutil.rmtree(idx.path, ignore_errors=True)
 
     def schema(self) -> list[dict]:
+        """The JSON-able schema (reference Holder.Schema, holder.go:284;
+        pilosa_tpu/models/holder.py:127)."""
         out = []
         for iname, idx in sorted(self.indexes.items()):
             out.append({
@@ -104,6 +131,17 @@ class Holder:
                 "shardWidth": SHARD_WIDTH,
             })
         return out
+
+    def apply_schema(self, schema: list[dict]) -> None:
+        """Create the indexes and fields of a schema description that do
+        not exist yet (reference applySchema, holder.go:327)."""
+        for idesc in schema:
+            idx = self.create_index_if_not_exists(
+                idesc["name"], IndexOptions.from_dict(idesc.get("options", {})))
+            for fdesc in idesc.get("fields", []):
+                idx.create_field_if_not_exists(
+                    fdesc["name"],
+                    FieldOptions.from_dict(fdesc.get("options", {})))
 
     def close(self) -> None:
         try:

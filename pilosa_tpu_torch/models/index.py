@@ -1,7 +1,7 @@
 """Index: a namespace of fields sharing one column space.
 
 Port of pilosa_tpu/models/index.py: the ``.meta`` options file in the
-reference's format and, with ``track_existence`` (the default), the
+reference's format, field creation and deletion, and, with ``track_existence`` (the default), the
 hidden ``_exists`` field recording which columns hold any data -- the
 universe ``Not()`` complements within.  String keys are not part of the
 port yet.
@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import threading
 from dataclasses import dataclass
 
@@ -92,6 +93,26 @@ class Index:
             if name in self.fields:
                 raise ValueError(f"field already exists: {name}")
             return self._create_field(name, options or FieldOptions())
+
+    def create_field_if_not_exists(self, name: str,
+                                   options: FieldOptions | None = None
+                                   ) -> Field:
+        with self._lock:
+            f = self.fields.get(name)
+            if f is not None:
+                return f
+            return self._create_field(name, options or FieldOptions())
+
+    def delete_field(self, name: str) -> None:
+        """Close the field, release what it holds on the card and the
+        host, and remove its directory (pilosa_tpu/models/index.py:139)."""
+        with self._lock:
+            f = self.fields.pop(name, None)
+            if f is None:
+                raise KeyError(f"field not found: {name}")
+            f.close()
+            if f.path is not None:
+                shutil.rmtree(f.path, ignore_errors=True)
 
     def _create_field(self, name: str, options: FieldOptions) -> Field:
         validate_name(name)

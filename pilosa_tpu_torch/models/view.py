@@ -1,8 +1,11 @@
 """View: one physical layout of a field, owning fragments by shard.
 
-Port of pilosa_tpu/models/view.py for the standard view and an int
-field's BSI view (``bsig_<field>``): it routes bits and values to the
-fragment owning the column's shard and creates fragments on first write.
+Port of pilosa_tpu/models/view.py: the standard view, a time field's
+quantum views (``standard_2024``, ``standard_202401``, ...) and an int
+field's BSI view (``bsig_<field>``).  It routes bits and values to the
+fragment owning the column's shard, creates fragments on first write,
+and passes a mutex or bool field's ``mutex`` flag to every fragment
+(pilosa_tpu/models/view.py:30-40, 67, 93).
 Fragment files live under ``<view>/fragments/<shard>.{snap,wal}`` as in
 the reference.
 """
@@ -23,15 +26,16 @@ VIEW_BSI_PREFIX = "bsig_"
 
 class View:
     def __init__(self, path: str | None, index: str, field: str, name: str,
-                 *, device: torch.device, cache_type: str = "ranked",
-                 cache_size: int = 50000):
+                 *, device: torch.device, mutex: bool = False,
+                 cache_type: str = "ranked", cache_size: int = 50000):
         self.path = path
         self.index = index
         self.field = field
         self.name = name
-        # the fragments' device and TopN cache options (the field's)
-        self._frag_opts = {"device": device, "cache_type": cache_type,
-                           "cache_size": cache_size}
+        # the fragments' device, mutex flag and TopN cache options (the
+        # field's)
+        self._frag_opts = {"device": device, "mutex": mutex,
+                           "cache_type": cache_type, "cache_size": cache_size}
         self.fragments: dict[int, Fragment] = {}
         # guards fragment creation; reads are plain dict gets
         self._lock = threading.Lock()

@@ -186,6 +186,19 @@ def counters() -> dict[str, int]:
         return dict(_counters)
 
 
+def debug() -> dict[str, Any]:
+    """``GET /debug/containers``: the config in force and the counters
+    (pilosa_tpu/ops/containers.py:215)."""
+    return {
+        "enabled": _cfg.enabled,
+        "threshold": _cfg.threshold,
+        "kinds": _cfg.kinds,
+        "arrayMax": _cfg.array_max,
+        "runCap": _cfg.run_cap,
+        "counters": counters(),
+    }
+
+
 # -------------------------------------------------------------- leaf pooling
 
 _LEAF_UID = itertools.count(1)
@@ -794,6 +807,28 @@ def stage_vm(idx: Any, call: Any, shards: tuple, use_delta: bool = True,
 _mega_lock = threading.Lock()
 _megapool_memo: dict = {}
 _MEGAPOOL_MEMO_CAP = 8
+
+
+def forget_leaves(uids) -> int:
+    """Drop every staged-gather and megapool memo entry that holds one
+    of the leaves ``uids``: a deleted field's pools must leave the card
+    now, not when the LRUs age them out.  Returns the entries dropped."""
+    uids = set(uids)
+    if not uids:
+        return 0
+
+    # stage keys are (shape, uids) or ("vm", shape, uids, min_domain);
+    # megapool keys are the uid tuple itself
+    memos = ((_stage_lock, _stage_memo,
+              lambda k: k[2] if k[0] == "vm" else k[1]),
+             (_mega_lock, _megapool_memo, lambda k: k))
+    n = 0
+    for lock, memo, uids_of in memos:
+        with lock:
+            for key in [k for k in memo if uids.intersection(uids_of(k))]:
+                del memo[key]
+                n += 1
+    return n
 
 
 class MegaPools:

@@ -74,13 +74,26 @@ probe.  Left out with the flight recorder: ``_rc_mark_hit`` and the
 open flight for ``resultcache.FLIGHT_WAIT_S``); with the cluster: the
 ``count_shards`` probe and ``_rc_fill_ok`` (no partial results).
 
-Not part of the port yet: the cluster fan-out, string keys, attributes
-(``SetRowAttrs``/``SetColumnAttrs``) and time views.
+Mutex, bool and time fields (executor.py:1038-1094, 1636-1655,
+2050-2080, 2620, 2815-2866): a bool field's ``true``/``false`` literal
+is row 1/0 (``_bool_row_id``) and is never fused, as in the reference; a
+``Row(f=r, from=..., to=...)`` over a time field unions the views that
+cover the range, clamped to the views that exist -- over more than one
+shard as one cached stack (``Field.device_time_row_stack``, a dense leaf:
+the container engine and the VM decline it), per shard through
+``Field.row_time`` -- and its result-cache identity holds the covering
+views, so a first write into a new view misses.  ``Rows`` over a time
+field with ``from``/``to`` (or no standard view) reads the covering
+views.  ``Set`` takes a timestamp into a time field's views.
+
+Not part of the port yet: the cluster fan-out, string keys and attributes
+(``SetRowAttrs``/``SetColumnAttrs``).
 """
 
 from __future__ import annotations
 
 import bisect
+import datetime as _dt
 import heapq
 import math
 from dataclasses import dataclass, replace
@@ -90,9 +103,10 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch import device as devmod
-from pilosa_tpu_torch.models.field import (UNSERVED_TYPES, FieldType,
-                                           is_set_like)
+from pilosa_tpu_torch.models.field import FieldType
 from pilosa_tpu_torch.models.row import Row
+from pilosa_tpu_torch.models.timequantum import (parse_time,
+                                                 views_by_time_range)
 from pilosa_tpu_torch.models.view import VIEW_STANDARD
 from pilosa_tpu_torch.ops import bitmap as bm
 from pilosa_tpu_torch.ops import bsi as bsi_ops
@@ -243,15 +257,16 @@ class Executor:
         f = idx.field(name)
         if f is None:
             raise ExecutionError(f"field not found: {name}")
-        if f.options.type in UNSERVED_TYPES:
-            raise ExecutionError(f"field {name!r} is a {f.options.type} "
-                                 f"field, which this port does not serve yet")
         return f
 
     @staticmethod
-    def _row_id(call: Call, fname: str):
-        """The integer row id of a Row/Set/Clear, or None."""
+    def _bool_row_id(f, call: Call, fname: str):
+        """The integer row id of a Row/Set/Clear, or None; a bool field's
+        ``true``/``false`` literal is row 1/0 (reference
+        callArgTranslation, executor.go:2678; executor.py:2620)."""
         v = call.args.get(fname)
+        if f.options.type == FieldType.BOOL and isinstance(v, bool):
+            return int(v)
         if isinstance(v, bool) or not isinstance(v, int) or v < 0:
             return None
         return v
@@ -260,8 +275,9 @@ class Executor:
 
     def _fused_supported(self, idx, call: Call) -> bool:
         """True when the tree evaluates over all shards at once: plain
-        standard-view Row leaves of set fields and condition rows of int
-        fields, combined with Union/Intersect/Difference/Xor/Not/Shift."""
+        standard-view Row leaves, time-range Rows of at most 256 covering
+        views and condition rows of int fields, combined with Union/
+        Intersect/Difference/Xor/Not/Shift (executor.py:1005-1060)."""
         name = call.name
         if name == "Row":
             cond = call.condition_arg()
@@ -286,10 +302,17 @@ class Executor:
             v = call.args.get(fname)
             if not isinstance(v, int) or isinstance(v, bool):
                 return False
-            if "from" in call.args or "to" in call.args:
-                return False
             f = idx.field(fname)
-            return f is not None and is_set_like(f.options)
+            if f is None:
+                return False
+            if "from" in call.args or "to" in call.args:
+                # the cover unions on the host into one cached stack; the
+                # cap bounds the generation tuple a hit compares
+                if not f.time_quantum:
+                    return False
+                views = self._time_range_views(f, call)
+                return views is not None and len(views) <= 256
+            return f.has_standard_rows
         if name == "Not":
             return (len(call.children) == 1
                     and idx.existence_field() is not None
@@ -309,6 +332,35 @@ class Executor:
         fused."""
         return len(shards) > 1 and (call is None
                                     or self._fused_supported(idx, call))
+
+    def _time_range_views(self, f, call: Call) -> list[str] | None:
+        """The time views covering a ``Row(from=, to=)``
+        (executor.py:1072-1094); None when the range does not parse."""
+        try:
+            start, end = self._time_bounds(f, call)
+        except (ValueError, TypeError, OverflowError, OSError):
+            return None
+        return ([] if start >= end
+                else views_by_time_range(VIEW_STANDARD, start, end,
+                                         f.time_quantum))
+
+    @staticmethod
+    def _time_bounds(f, call: Call) -> tuple:
+        """``[from, to)`` of a time-range call, an open end clamped to the
+        span the field's time views cover (the reference's minMaxViews
+        clamping; executor.py:1636-1655), empty when there is no time
+        view.  A malformed time raises."""
+        from_arg = call.args.get("from")
+        to_arg = call.args.get("to")
+        start = (parse_time(from_arg) if from_arg is not None
+                 else _dt.datetime(1, 1, 1))
+        end = (parse_time(to_arg) if to_arg is not None
+               else _dt.datetime(9999, 1, 1))
+        times = f.time_view_times()
+        if not times:
+            return start, start
+        hi = max(times) + _dt.timedelta(days=366)
+        return max(start, min(times)), min(end, hi)
 
     @staticmethod
     def _fused_row_leaf(f, row_id: int, shards: tuple[int, ...],
@@ -347,8 +399,16 @@ class Executor:
                     condition.op, value, shards))
                 return ("leaf", len(leaves) - 1)
             fname = call.field_arg()
-            return self._fused_row_leaf(idx.field(fname), call.args[fname],
-                                        shards, leaves, use_delta)
+            f = idx.field(fname)
+            if "from" in call.args or "to" in call.args:
+                # one cached stack of the covering views' union, the
+                # overlays applied on the host: no dfuse leaves
+                views = self._time_range_views(f, call) or []
+                leaves.append(f.device_time_row_stack(
+                    call.args[fname], shards, tuple(views)))
+                return ("leaf", len(leaves) - 1)
+            return self._fused_row_leaf(f, call.args[fname], shards, leaves,
+                                        use_delta)
         if name in _SET_OPS:
             return (_SET_OPS[name],
                     *(self._fused_shape(idx, c, shards, leaves, use_delta)
@@ -440,6 +500,14 @@ class Executor:
                 return ("range", fname, condition.op, value)
             fname = call.field_arg()
             f = idx.field(fname)
+            if "from" in call.args or "to" in call.args:
+                # the covering views are part of the identity: a first
+                # write into a new view changes the cover, and the old
+                # entry stops being addressed (executor.py:1296-1310)
+                views = tuple(self._time_range_views(f, call) or ())
+                for vn in views:
+                    self._rc_collect_gens(f, vn, shards, gens_out)
+                return ("time", fname, call.args[fname], views)
             self._rc_collect_gens(f, VIEW_STANDARD, shards, gens_out)
             return ("row", fname, call.args[fname])
         if name in _SET_OPS:
@@ -570,17 +638,23 @@ class Executor:
                 return self._range_words_shard(idx, cond, shard)
             fname = call.field_arg()
             f = self._field(idx, fname)
-            row_id = self._row_id(call, fname)
+            row_id = self._bool_row_id(f, call, fname)
             if row_id is None:
                 raise ExecutionError(
                     f"Row(): field {fname!r} requires an integer row")
-            if "from" in call.args or "to" in call.args:
-                if not f.options.time_quantum:
-                    raise ExecutionError(f"field {fname!r} does not support "
-                                         f"time-range queries")
-                raise ExecutionError("Row(): time ranges are not supported "
-                                     "by this port yet")
-            return self._field_row_words(f, row_id, shard, use_delta)
+            if call.args.get("from") is None and call.args.get("to") is None:
+                return self._field_row_words(f, row_id, shard, use_delta)
+            # a time range: the covering views' union (executor.py:
+            # 1636-1652)
+            if not f.time_quantum:
+                raise ExecutionError(f"field {fname!r} does not support "
+                                     f"time-range queries")
+            start, end = self._time_bounds(f, call)
+            if start >= end:
+                return None
+            words = f.row_time(row_id, shard, start, end)
+            return None if words is None else bm.to_tensor(words,
+                                                           self.device)
         if name in ("Union", "Xor"):
             op = bm.b_or if name == "Union" else bm.b_xor
             out = None
@@ -893,10 +967,12 @@ class Executor:
 
     def _execute_rows(self, idx, call: Call, shards, opt: ExecOptions
                       ) -> list[int]:
-        """The row ids of a field's standard view, ascending
-        (executor.py:2050-2136): past ``previous``, holding ``column``,
-        at most ``limit``.  ``from``/``to`` are ignored, as the
-        reference ignores them on a set field."""
+        """The row ids of a field, ascending (executor.py:2050-2136):
+        past ``previous``, holding ``column``, at most ``limit``.  A time
+        field with ``from``/``to``, or with no standard view, reads the
+        views covering the range (a row counts when any of them holds
+        it); any other field ignores ``from``/``to``, as the reference
+        does."""
         # "field=" is the reference's backwards-compat spelling
         fname = call.args.get("_field") or call.args.get("field")
         if not fname:
@@ -906,6 +982,14 @@ class Executor:
         previous = call.uint_arg("previous")
         column = call.uint_arg("column")
         shards = self._target_shards(idx, shards, opt)
+        views = [VIEW_STANDARD]
+        if f.time_quantum and ("from" in call.args or "to" in call.args
+                               or f.options.no_standard_view):
+            views = self._time_range_views(f, call)
+            if views is None:
+                raise ExecutionError("Rows(): malformed from/to time")
+            if not views:
+                return []
 
         def push_down(ids: list[int]) -> list[int]:
             # previous/limit apply inside the shard scan, so a shard
@@ -919,22 +1003,30 @@ class Executor:
         def map_fn(shard):
             if column is not None and shard != column // SHARD_WIDTH:
                 return []
-            view = f.view(VIEW_STANDARD)
-            frag = view.fragment(shard) if view is not None else None
-            if frag is None:
+            frags = []
+            for vname in views:
+                view = f.view(vname)
+                frag = view.fragment(shard) if view is not None else None
+                if frag is not None:
+                    frags.append(frag)
+            if not frags:
                 return []
             if column is not None:
-                # the column's word down the row matrix: a row qualifies
-                # when its bit is set (rowFilter ColumnFilter)
+                # the column's word down each view's row matrix: a row
+                # qualifies when its bit is set in any (rowFilter
+                # ColumnFilter)
                 off = column % SHARD_WIDTH
                 w, b = off // bm.WORD_BITS, off % bm.WORD_BITS
-                ids_arr, matrix = frag._stacked()
-                if len(ids_arr) == 0:
-                    return []
-                mask = (matrix[:, w] >> np.uint32(b)) & np.uint32(1)
-                return push_down(sorted(int(r)
-                                        for r in ids_arr[mask.astype(bool)]))
-            return push_down(frag.row_ids())
+                hit: set[int] = set()
+                for frag in frags:
+                    ids_arr, matrix = frag._stacked()
+                    if len(ids_arr) == 0:
+                        continue
+                    mask = (matrix[:, w] >> np.uint32(b)) & np.uint32(1)
+                    hit.update(int(r) for r in ids_arr[mask.astype(bool)])
+                return push_down(sorted(hit))
+            return push_down(sorted(set().union(
+                *(frag.row_ids() for frag in frags))))
 
         parts = self._local_map(map_fn, shards)
         # bounded k-way merge of the sorted per-shard lists, deduplicated,
@@ -1312,16 +1404,19 @@ class Executor:
             if ef is not None:
                 ef.set_bit(0, col)
             return f.set_value(col, value)
-        row_id = self._row_id(call, fname)
+        row_id = self._bool_row_id(f, call, fname)
         if row_id is None:
             raise ExecutionError("Set() row argument required")
-        if call.args.get("_timestamp") is not None:
+        # every check before any write (executor.py:2815-2838)
+        ts = call.args.get("_timestamp")
+        timestamp = parse_time(ts) if ts is not None else None
+        if timestamp is not None and f.options.type != FieldType.TIME:
             raise ExecutionError(f"field {fname!r} does not accept "
                                  f"timestamps")
         ef = idx.existence_field()
         if ef is not None:
             ef.set_bit(0, col)
-        return f.set_bit(row_id, col)
+        return f.set_bit(row_id, col, timestamp=timestamp)
 
     def _execute_clear_row(self, idx, call: Call) -> bool:
         """Clear a row in every view and shard (executor.py:2904-2919)."""
@@ -1380,7 +1475,7 @@ class Executor:
         f = self._field(idx, fname)
         if f.options.type == FieldType.INT:
             return f.clear_value(col)
-        row_id = self._row_id(call, fname)
+        row_id = self._bool_row_id(f, call, fname)
         if row_id is None:
             raise ExecutionError("Clear() row argument required")
         return f.clear_bit(row_id, col)

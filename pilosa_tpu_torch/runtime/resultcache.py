@@ -32,7 +32,8 @@ the ``resultcache.fill`` failpoint (no ``faultinject``), the per-tenant
 soft budgets of ``serve.tenant`` (the port takes the reference's path
 with ``[tenants]`` off: every entry anonymous, one global LRU; the
 ``tenantPrefEvictions`` counter stays 0), ``invalidate_shard`` (the
-rebalance cutover hook; no cluster) and ``publish_gauges`` (no stats
+rebalance cutover hook; no cluster; the port's ``invalidate_index`` drops
+a deleted index's or field's entries instead) and ``publish_gauges`` (no stats
 registry).  ``GET /debug/resultcache`` serves ``debug()``.
 
 The ``[cache]`` knobs are process-wide, as in the reference: ``retain``
@@ -259,6 +260,21 @@ class ResultCache:
         fl = self._flights.pop(key, None)
         if fl is not None:
             fl.event.set()
+
+    def invalidate_index(self, holder_uid: int, index: str) -> int:
+        """Drop every entry of one holder's ``index`` -- a deleted index
+        or field must hold nothing here -- counted as invalidations; the
+        dropped keys' flights resolve.  Executor keys are ``(holder_uid,
+        index, kind, sig, extra, shards, placement)``."""
+        with self._lock:
+            victims = [key for key in self._entries
+                       if isinstance(getattr(key, "k", None), tuple)
+                       and key.k[:2] == (holder_uid, index)]
+            for key in victims:
+                self.bytes -= self._entries.pop(key).nbytes
+                self._resolve_flight_locked(key)
+            self.invalidations += len(victims)
+            return len(victims)
 
     def invalidate_all(self) -> int:
         """Drop everything (tests, operators), counted as invalidations;

@@ -1,18 +1,30 @@
 """HTTP handler: the REST surface of one node.
 
 Port of the public routes of pilosa_tpu/server/handler.py that the slice
-serves:
+serves, with the reference's status codes and bodies:
 
-    GET  /status
-    POST /index/{index}
-    POST /index/{index}/field/{field}
-    POST /index/{index}/field/{field}/import
-    POST /index/{index}/field/{field}/import-value
-    POST /index/{index}/field/{field}/import-roaring/{shard}
-    POST /index/{index}/query          (raw PQL or JSON {"query": ...})
-    GET  /debug/ragged
-    GET  /debug/ingest
-    GET  /debug/resultcache
+    GET    /  /version  /info  /status  /hosts
+    POST   /recalculate-caches
+    GET    /index  /schema             (both {"indexes": schema})
+    POST   /schema                     (create what does not exist)
+    POST   /index/{index}
+    GET    /index/{index}
+    DELETE /index/{index}
+    POST   /index/{index}/field/{field}
+    DELETE /index/{index}/field/{field}
+    POST   /index/{index}/field/{field}/import
+    POST   /index/{index}/field/{field}/import-value
+    POST   /index/{index}/field/{field}/import-roaring/{shard}
+    POST   /index/{index}/query        (raw PQL or JSON {"query": ...})
+    GET    /export?index=&field=&shard=  (text/csv)
+    GET    /debug/containers
+    GET    /debug/ragged
+    GET    /debug/ingest
+    GET    /debug/resultcache
+
+``/hosts`` and ``/info`` answer for the one local node, as the reference
+does with its cluster off; ``/version`` is the reference's local-only
+answer (its update check never runs).
 
 ``serialize_result`` is the reference's (handler.py:46), so the JSON of
 a query is byte-identical between the two packages.  Built on the
@@ -26,6 +38,7 @@ from __future__ import annotations
 
 import base64
 import datetime as dt
+import io
 import json
 import re
 import threading
@@ -198,6 +211,9 @@ class Handler:
             def do_POST(self):
                 handler_self._handle(self, "POST")
 
+            def do_DELETE(self):
+                handler_self._handle(self, "DELETE")
+
         class _Srv(ThreadingHTTPServer):
             request_queue_size = 128
             daemon_threads = True
@@ -261,6 +277,13 @@ class Handler:
         req.end_headers()
         req.wfile.write(data)
 
+    def _bytes(self, req, data: bytes, ctype: str) -> None:
+        req.send_response(200)
+        req.send_header("Content-Type", ctype)
+        req.send_header("Content-Length", str(len(data)))
+        req.end_headers()
+        req.wfile.write(data)
+
     def _error(self, req, status: int, msg: str) -> None:
         try:
             self._json(req, {"error": msg}, status)
@@ -269,15 +292,71 @@ class Handler:
 
     # -------------------------------------------------------------- routes
 
+    @route("GET", "/")
+    def handle_root(self, req, params, path, body):
+        self._json(req, {
+            "name": "pilosa-tpu",
+            "version": self.api.version(),
+            "docs": "see /schema, /status, /index/{index}/query",
+        })
+
+    @route("GET", "/version")
+    def handle_version(self, req, params, path, body):
+        # the reference's update check with no fetcher wired: local only
+        # (pilosa_tpu/diagnostics.py:69-80)
+        self._json(req, {"version": self.api.version(),
+                         "updateCheck": "disabled (local-only diagnostics; "
+                                        "wire a fetcher to enable)"})
+
+    @route("GET", "/info")
+    def handle_info(self, req, params, path, body):
+        self._json(req, self.api.info())
+
     @route("GET", "/status")
     def handle_status(self, req, params, path, body):
-        node_id = self.api.holder.node_id
         self._json(req, {
             "state": self.api.state(),
-            "nodes": [{"id": node_id, "uri": self.uri,
-                       "isCoordinator": True, "state": "READY"}],
-            "localID": node_id,
+            "nodes": self.api.hosts(),
+            "localID": self.api.holder.node_id,
         })
+
+    @route("GET", "/hosts")
+    def handle_hosts(self, req, params, path, body):
+        self._json(req, self.api.hosts())
+
+    @route("POST", "/recalculate-caches")
+    def handle_recalculate_caches(self, req, params, path, body):
+        self.api.recalculate_caches()
+        self._json(req, {})
+
+    @route("GET", "/index")
+    def handle_get_indexes(self, req, params, path, body):
+        self._json(req, {"indexes": self.api.schema()})
+
+    @route("GET", "/schema")
+    def handle_get_schema(self, req, params, path, body):
+        self._json(req, {"indexes": self.api.schema()})
+
+    @route("POST", "/schema")
+    def handle_post_schema(self, req, params, path, body):
+        d = json.loads(body or b"{}")
+        self.api.apply_schema(d.get("indexes", []))
+        self._json(req, {})
+
+    @route("GET", "/export")
+    def handle_export(self, req, params, path, body):
+        buf = io.StringIO()
+        self.api.export_csv(params["index"], params["field"],
+                            int(params.get("shard", 0)), buf)
+        self._bytes(req, buf.getvalue().encode(), "text/csv")
+
+    @route("GET", "/debug/containers")
+    def handle_debug_containers(self, req, params, path, body):
+        """The [containers] config in force and the container.* counters,
+        with the reference's keys (pilosa_tpu/server/handler.py:1372)."""
+        from pilosa_tpu_torch.ops import containers
+
+        self._json(req, containers.debug())
 
     @route("POST", "/index/{index}/query")
     def handle_post_query(self, req, params, path, body):
@@ -377,6 +456,16 @@ class Handler:
                               IndexOptions.from_dict(d.get("options", {})))
         self._json(req, {})
 
+    @route("DELETE", "/index/{index}")
+    def handle_delete_index(self, req, params, path, body):
+        self.api.delete_index(path["index"])
+        self._json(req, {})
+
+    @route("GET", "/index/{index}")
+    def handle_get_index(self, req, params, path, body):
+        idx = self.api.index(path["index"])
+        self._json(req, {"name": idx.name, "options": idx.options.to_dict()})
+
     @route("POST", "/index/{index}/field/{field}")
     def handle_create_field(self, req, params, path, body):
         d = json.loads(body or b"{}")
@@ -384,13 +473,18 @@ class Handler:
                               FieldOptions.from_dict(d.get("options", {})))
         self._json(req, {})
 
+    @route("DELETE", "/index/{index}/field/{field}")
+    def handle_delete_field(self, req, params, path, body):
+        self.api.delete_field(path["index"], path["field"])
+        self._json(req, {})
+
     @route("POST", "/index/{index}/field/{field}/import")
     def handle_import(self, req, params, path, body):
         """JSON {"rowIDs": [...], "columnIDs": [...], "timestamps":
-        [...]}.  Timestamps only reach a time view, which the port does
-        not have yet; into a field with no time quantum they are checked
-        and the standard view written, as in the reference
-        (pilosa_tpu/server/handler.py:960-964)."""
+        [...]}: unix seconds or nanoseconds, or ISO-8601 strings, each
+        bit written to its time views too; into a field with no time
+        quantum they are checked and the standard view written, as in
+        the reference (pilosa_tpu/server/handler.py:960-964)."""
         _refuse_protobuf(req, body)
         d = json.loads(body)
         timestamps = d.get("timestamps")

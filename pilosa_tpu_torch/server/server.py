@@ -138,6 +138,7 @@ class Server:
             self.executor.coalescer = self.coalescer
             self.api = API(self.holder, self.executor)
             self.handler = Handler(self.api, self.host, self.port)
+            self.api.uri = self.handler.uri
         except BaseException:
             if self.holder is not None:
                 self.holder.close()

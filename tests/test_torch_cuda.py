@@ -14,7 +14,9 @@ batch over array, run and bitmap rows launching K3-kinds once,
 coalesced batches over rows with pending ingest deltas launching K3 and
 K3-kinds once on ``dfuse`` tapes (each launch held against its plain
 version), TopN and GroupBy
-launching K4 and K5, and an int field's range rows and aggregates
+launching K4 and K5, counts over a mutex field launching K2 and K3
+before and after a mutex move and GroupBy over mutex and bool fields
+launching K5, and an int field's range rows and aggregates
 launching K6, K4 and K1 where the CPU tests see their dispatch sites,
 and K3 and K3-kinds launched at once from many threads with different
 shared memory sizes.
@@ -38,6 +40,7 @@ import numpy as np
 import pytest
 import torch
 
+from pilosa_tpu_torch.models.field import FieldOptions
 from pilosa_tpu_torch.models.holder import Holder
 from pilosa_tpu_torch.ops import bitmap as bm
 from pilosa_tpu_torch.ops import containers
@@ -702,6 +705,68 @@ def test_topn_and_groupby_on_cuda_launch_k4_and_k5(cuda_device):
     assert after["row_counts_masked"] - before["row_counts_masked"] == 1
     assert (after["masked_matrix_counts"]
             - before["masked_matrix_counts"]) == n_shards
+    h.close()
+
+
+@pytest.mark.cuda
+def test_mutex_and_bool_fields_on_cuda_launch_k2_k3_and_k5(
+        cuda_device, bitmap_containers):
+    """Counts over a mutex row run K2 (one lone fused Count) and K3
+    (coalesced), before and after a write moves a column between rows;
+    GroupBy(Rows(m), Rows(b)) runs one K5 per shard; a bool literal is
+    not fused and launches nothing."""
+    rng = np.random.default_rng(33)
+    n_shards = 3
+    h = Holder(None, device=cuda_device)
+    idx = h.create_index("i")
+    f = idx.create_field("f")
+    m = idx.create_field("m", FieldOptions.mutex_field())
+    b = idx.create_field("b", FieldOptions.bool_field())
+    n = SHARD_WIDTH // 64
+    perm = rng.permutation(n_shards * SHARD_WIDTH)[:4 * n]
+    fc = rng.choice(n_shards * SHARD_WIDTH, size=2 * n, replace=False)
+    f.import_bits(np.ones(len(fc), dtype=np.int64), fc)
+    f.flush_deltas()
+    rows = np.repeat(np.arange(1, 4), n)
+    m.import_bits(rows, perm[:3 * n])  # one row per column, bit by bit
+    b.import_bits(np.arange(2 * n) % 2, perm[n:3 * n])
+    sets = {("m", r): set(perm[(r - 1) * n:r * n].tolist())
+            for r in range(1, 4)}
+    for r in (0, 1):
+        sets["b", r] = set(perm[n:3 * n][r::2].tolist())
+    f1 = set(fc.tolist())
+    pql = "Count(Intersect(Row(m=2), Row(f=1)))"
+    ex = Executor(h, device=cuda_device)
+    co = Coalescer(window_s=0.05, max_batch=1, enabled=True,
+                   device=cuda_device)
+    for step in range(2):
+        want = [len(sets["m", 2] & f1)]
+        ex.coalescer = None
+        k0 = ck.launch_counts()
+        assert ex.execute("i", pql, opt=ExecOptions(cache=False)) == want
+        ex.coalescer = co
+        assert ex.execute("i", pql, opt=ExecOptions(cache=False)) == want
+        k1 = ck.launch_counts()
+        assert {k: k1[k] - k0[k] for k in k1 if k1[k] != k0[k]} == {
+            "gathered_count_and": 1, "vm_counts": 1}
+        if step == 0:
+            # move a column of f=1's from row 1 to row 2
+            col = sorted(sets["m", 1] & f1)[0]
+            assert ex.execute("i", f"Set({col}, m=2)") == [True]
+            sets["m", 1].discard(col)
+            sets["m", 2].add(col)
+    k0 = ck.launch_counts()
+    assert ex.execute("i", "Count(Row(b=true))") == [len(sets["b", 1])]
+    groups = ex.execute("i", "GroupBy(Rows(m), Rows(b))",
+                        opt=ExecOptions(cache=False))[0]
+    assert {(gc.group[0].row_id, gc.group[1].row_id): gc.count
+            for gc in groups} == {
+        (a, c): len(sets["m", a] & sets["b", c])
+        for a in range(1, 4) for c in (0, 1)
+        if sets["m", a] & sets["b", c]}
+    k1 = ck.launch_counts()
+    assert {k: k1[k] - k0[k] for k in k1 if k1[k] != k0[k]} == {
+        "masked_matrix_counts": n_shards}
     h.close()
 
 
