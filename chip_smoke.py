@@ -12,7 +12,9 @@ array, run and bitmap containers ([containers] kinds, the server's
 default), and writes that wait in ingest delta planes ([ingest]
 delta-enabled, the server's default) under coalesced, dense and
 per-shard reads, mutex, bool and time fields with the schema and admin
-routes, and the result cache ([cache] enabled, the server's default)
+routes, string keys, attributes and protobuf bodies (the wire surface of
+a stock Pilosa client), and the result cache ([cache] enabled, the
+server's default)
 with the calls it keys -- and holds every hand-written kernel against
 its plain PyTorch version on the card.
 
@@ -138,8 +140,24 @@ paths read base rows, as they would once the compactor had run.
    ``GET /export`` of an m shard against the oracle's CSV, ``POST
    /recalculate-caches``, a field deleted and recreated with other bits,
    and the read-only routes;
-11e. the cache phase (``phase_cache``): the result cache at the server's
-   default (on); steps 5-11d pass ``?nocache=1`` on every query, so that
+11e. the keys phase (``phase_keys``), every query a protobuf
+   ``QueryRequest`` answered in protobuf with ``?nocache=1``: a keyed set
+   field kf on the served index, 16 row keys at ~8 %, their ids from
+   ``POST /internal/translate/keys`` in protobuf and their bits by id
+   through protobuf ``/import-roaring``, row attributes on every row; a
+   keyed index ki of 1,000,000 column keys and 8 row keys loaded through
+   protobuf ``/import`` (rowKeys/columnKeys) in batches of 100,000 bits,
+   100,000 of the keys looked up again through the translate route,
+   1,000 column attributes; a keyed ``Count(Intersect)`` coalesced (K3)
+   and with ``?nocoalesce=true`` (K2), a keyed filtered TopN with and without
+   ``attrName`` (K4), ``GroupBy(Rows(kf), Rows(f))`` (K5 per shard),
+   ``Row(kf="k3")`` with its attributes, keyed Rows, and on ki
+   ``Options(Row(kr="r1"), columnAttrs=true)``, a Count and Rows, each
+   once cold and 5 times warm; every answer equal to the numpy oracle
+   built from the phase's keys and bits and every kernel launched
+   exactly at its sites; a keyed Count timed in JSON and in protobuf;
+11f. the cache phase (``phase_cache``): the result cache at the server's
+   default (on); steps 5-11e pass ``?nocache=1`` on every query, so that
    their repeats launch their kernels.  The 16 coalesced trees twice, the
    second round all hits with no K2, K3, K3-kinds, K4 or K5 launch; a Set
    on f row 1 (a pending delta) and then a compaction each make every
@@ -221,7 +239,7 @@ PROFILED_ROUNDS = 10
 N_SHARDS = 256  # of 2^20 columns: the 268,435,456-column index
 SCAN_SHARDS = 64  # shards 0-63 hold the scan path's fields s and u
 SCAN_ROWS = 64  # rows of s and of u
-QUERY_RUNS = 15  # warm runs of each TopN / Rows / GroupBy query
+QUERY_RUNS = 10  # warm runs of each TopN / Rows / GroupBy query
 FILL_BITS = 10  # the scan fields' fills are multiples of 2^-10
 SCAN_COLUMN = (7, 12345)  # Rows(s, column=...): shard 7, offset 12345
 BSI_MIN, BSI_MAX, BSI_DEPTH = -1_000_000, 1_000_000, 20  # int field v
@@ -232,7 +250,7 @@ BSI_SET = (5, 4321, 123)  # Set(col, v=123) at shard 5, offset 4321
 KINDS_ARRAY_BITS = 65  # of 65536 per container: the array rows, ~0.1 %
 KIND_RUNS = 16  # runs per container in the run rows...
 KIND_RUN_LEN = 512  # ...of this many columns each (12.5 % fill)
-KINDS_WARM = 20  # warm runs of each kinds-leg query
+KINDS_WARM = 12  # warm runs of each kinds-leg query
 KINDS_ROUNDS = 30  # coalesced rounds over kinds-mixed shapes
 KINDS_TIMED_BATCH = 4  # queries in the timed K3-kinds launch
 FIXED_B = 4  # queries of the fixed-shape K3 and K3-kinds launches...
@@ -3209,6 +3227,367 @@ def phase_field_types(ck, srv, http: Http, roaring, data: dict, cpr: int,
     return out
 
 
+KEYS_ROWS = 16  # row keys of the keyed set field kf on the served index
+KEYS_FILL = 82  # of 1024: kf's rows at ~8 % fill
+KEYS_COLUMNS = 1_000_000  # column keys of the keyed index ki
+KEYS_ROW_KEYS = 8  # row keys of ki's field kr
+KEYS_BATCH = 100_000  # bits of each protobuf /import into ki
+KEYS_COLUMN_ATTRS = 1000  # columns of ki with attributes
+KEYS_RUNS = 5  # warm runs of each keyed query
+PB = "application/x-protobuf"
+
+
+def keyed_rows(rng, n_rows: int, n_shards: int, words: int) -> dict:
+    """Row index -> uint32[n_shards, words] at fill KEYS_FILL / 1024, the
+    words combined as graded_rows combines them."""
+    rows = {}
+    for r in range(n_rows):
+        x = None
+        for b in range(FILL_BITS):
+            bit = (KEYS_FILL >> b) & 1
+            if x is None:
+                if bit:
+                    x = rng.integers(0, 2 ** 32, size=(n_shards, words),
+                                     dtype=np.uint32)
+                continue
+            w = rng.integers(0, 2 ** 32, size=(n_shards, words),
+                             dtype=np.uint32)
+            (np.bitwise_or if bit else np.bitwise_and)(x, w, out=x)
+        rows[r] = x
+    return rows
+
+
+def pb_post(http: Http, path: str, body: bytes, accept: bool = True
+            ) -> tuple[int, bytes, float]:
+    """A protobuf body, the answer in protobuf when ``accept``; the
+    status, the body and the host-clock ms."""
+    req = urllib.request.Request(http.uri + path, data=body, method="POST")
+    req.add_header("Content-Type", PB)
+    if accept:
+        req.add_header("Accept", PB)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            st, out = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        st, out = e.code, e.read()
+    return st, out, (time.perf_counter() - t0) * 1e3
+
+
+def pb_query(proto, http: Http, pql: str, flags: str = "",
+             index: str = "i", **req) -> tuple[dict, float]:
+    """A protobuf QueryRequest answered in protobuf, with ?nocache=1:
+    the decoded QueryResponse and the host-clock ms."""
+    flags += ("&" if "?" in flags else "?") + "nocache=1"
+    body = proto.encode(proto.QUERY_REQUEST, dict(query=pql, **req))
+    st, out, ms = pb_post(http, f"/index/{index}/query{flags}", body)
+    resp = proto.decode(proto.QUERY_RESPONSE, out)
+    check(st == 200 and resp["err"] == "",
+          f"{pql}{flags} (protobuf): HTTP {st} {resp['err']!r}")
+    return resp, ms
+
+
+def pb_plain(proto, resp: dict) -> list:
+    """A decoded QueryResponse's results as JSON-able values: a Row's
+    columns and keys and attributes, pairs as (key or id, count), groups
+    as ((field, row id, row key), ...) and a count."""
+    out = []
+    for r in resp["results"]:
+        res = proto.proto_to_result(r)
+        if r["type"] == proto.TYPE_ROW:
+            out.append({"columns": res.columns().tolist(),
+                        "keys": list(res.keys), "attrs": res.attrs})
+        elif r["type"] == proto.TYPE_PAIRS:
+            out.append([[p.key or p.id, p.count] for p in res])
+        elif r["type"] == proto.TYPE_GROUP_COUNTS:
+            out.append([[[[fr.field, fr.row_id, fr.row_key]
+                          for fr in g.group], g.count] for g in res])
+        else:
+            out.append(res)
+    return out
+
+
+def keys_queries(n_shards: int) -> tuple:
+    """(label, PQL, URL flags, index, QueryRequest fields, {kernel:
+    launches per run}) of the keyed path.  A keyed row is a bitmap row of
+    the same index, so its Counts, TopNs and GroupBys reach the kernels
+    their id forms reach; the keyed index ki lives on one shard, so its
+    reads take the per-shard routes and launch nothing."""
+    return (
+        ("count_k3_f1", 'Count(Intersect(Row(kf="k3"), Row(f=1)))', "",
+         "i", {}, {"vm_counts": 1}),
+        ("count_k3_f1_k2", 'Count(Intersect(Row(kf="k3"), Row(f=1)))',
+         "?nocoalesce=true", "i", {}, {"gathered_count_and": 1}),
+        ("topn_kf_f1", "TopN(kf, Row(f=1), n=5)", "", "i", {},
+         {"row_counts_masked": 1}),
+        ("topn_kf_f1_attr", 'TopN(kf, Row(f=1), n=5, attrName="tier", '
+                            'attrValues=["gold"])', "", "i", {},
+         {"row_counts_masked": 1}),
+        ("groupby_kf_f", "GroupBy(Rows(kf), Rows(f))", "", "i", {},
+         {"masked_matrix_counts": n_shards}),
+        ("row_k3_attrs", 'Row(kf="k3")', "", "i",
+         {"excludeColumns": True}, {}),
+        ("row_k3_shard5", 'Row(kf="k3")', "", "i", {"shards": [5]}, {}),
+        ("rows_kf", "Rows(kf)", "", "i", {}, {}),
+        ("row_r1_column_attrs", 'Options(Row(kr="r1"), columnAttrs=true)',
+         "", "ki", {}, {}),
+        ("count_r2", 'Count(Row(kr="r2"))', "", "ki", {}, {}),
+        ("rows_kr", "Rows(kr)", "", "ki", {}, {}),
+        ("row_missing", 'Count(Intersect(Row(kf="nope"), Row(f=1)))', "",
+         "i", {}, {}),
+    )
+
+
+def keys_oracles(kd: dict, f: dict) -> dict:
+    """The numpy answers of the keyed path, as pb_plain gives them."""
+    kf, ids = kd["kf"], kd["kf_ids"]
+    keys = [f"k{r}" for r in range(KEYS_ROWS)]
+    f1 = f[1]
+    by_f1 = {k: popcounts(kf[r] & f1) for r, k in enumerate(keys)}
+
+    def topn(keep) -> list:
+        order = sorted((k for k in keys if by_f1[k] > 0 and keep(k)),
+                       key=lambda k: (-by_f1[k], ids[k]))
+        return [[k, by_f1[k]] for k in order[:5]]
+
+    pc = pair_counts(kf, f)
+    fr = sorted(f)
+    groups = [[[["kf", ids[keys[i]], keys[i]], ["f", fr[j], ""]],
+               int(pc[i, j])]
+              for i in sorted(range(KEYS_ROWS), key=lambda i: ids[keys[i]])
+              for j in range(len(fr)) if pc[i, j] > 0]
+    k3 = kf[3]
+    shard5 = (np.nonzero(np.unpackbits(k3[5].view(np.uint8),
+                                       bitorder="little"))[0]
+              + 5 * k3.shape[1] * 32).tolist()
+    rk, ck_ = kd["ki_rows"], kd["ki_cols"]
+    r1 = np.flatnonzero(rk == 1)
+    attrs = kd["ki_attrs"]
+    col_attrs = [{"key": ck_[p], "attrs": attrs[p]}
+                 for p in r1 if p in attrs]
+    return {
+        "count_k3_f1": [by_f1["k3"]],
+        "count_k3_f1_k2": [by_f1["k3"]],
+        "topn_kf_f1": [topn(lambda k: True)],
+        "topn_kf_f1_attr": [topn(lambda k: kd["tier"][k] == "gold")],
+        "groupby_kf_f": [groups],
+        "row_k3_attrs": [{"columns": [], "keys": [],
+                          "attrs": kd["row_attrs"]["k3"]}],
+        "row_k3_shard5": [{"columns": shard5, "keys": [],
+                           "attrs": kd["row_attrs"]["k3"]}],
+        "rows_kf": [{"keys": sorted(keys, key=lambda k: ids[k])}],
+        "row_r1_column_attrs": ([{"columns": [], "keys": [ck_[p] for p in r1],
+                                  "attrs": {}}], col_attrs),
+        "count_r2": [int((rk == 2).sum())],
+        "rows_kr": [{"keys": [f"r{i}" for i in kd["ki_row_order"]]}],
+        "row_missing": [0],
+    }
+
+
+def keys_answer(proto, label: str, resp: dict):
+    """A keyed query's decoded answer in the oracle's form."""
+    got = pb_plain(proto, resp)
+    if label == "row_r1_column_attrs":
+        row = dict(got[0], columns=[])
+        sets = [{"key": a["key"], "attrs": proto.proto_to_attrs(a["attrs"])}
+                for a in resp["columnAttrSets"]]
+        return [row], sets
+    if label in ("rows_kf", "rows_kr"):
+        ri = resp["results"][0]["rowIdentifiers"]
+        return [{"keys": list(ri["keys"])}]
+    return got
+
+
+def phase_keys(ck, srv, http: Http, roaring, data: dict, cpr: int,
+               words: int, seed: int) -> dict:
+    """String keys, attributes and protobuf bodies, the wire surface of a
+    stock Pilosa client, on the served index (all shards) and a keyed
+    index:
+
+    (a) kf: a keyed set field on index i, KEYS_ROWS row keys at ~8 %;
+        their ids from ``POST /internal/translate/keys`` sent and answered
+        in protobuf; the bits by id through ``/import-roaring/{shard}``
+        in protobuf ImportRoaringRequests, as a bulk loader sends them;
+        row attributes on all its rows;
+    (b) ki: a keyed index with KEYS_COLUMNS column keys and a keyed field
+        kr of KEYS_ROW_KEYS row keys, every column key once, loaded
+        through protobuf ``/import`` (rowKeys/columnKeys) in batches of
+        KEYS_BATCH bits; the lookup rate of KEYS_BATCH of the keys through
+        ``/internal/translate/keys``; KEYS_COLUMN_ATTRS column attributes
+        in one PQL request;
+    (c) protobuf QueryRequests answered in protobuf, each once cold and
+        KEYS_RUNS times warm with ?nocache=1: a keyed Count(Intersect)
+        coalesced (K3) and with ?nocoalesce=true (K2), a keyed filtered
+        TopN with and without attrName (K4), GroupBy(Rows(kf), Rows(f))
+        (K5 per shard), Row(kf="k3") with its attributes (all shards with
+        excludeColumns, and shard 5), keyed Rows, and on ki
+        Options(Row(kr="r1"), columnAttrs=true), a Count and Rows; every
+        answer equal to the numpy oracle built from the phase's own keys
+        and bits, every kernel launched exactly at its sites;
+    (d) the same Count in JSON and in protobuf, timed.
+
+    Launch counts are zeroed at the start of (c) and read at its end."""
+    from pilosa_tpu_torch import proto
+
+    out: dict = {"queries": {}, "times": {}}
+    rng = np.random.default_rng(seed + 61)
+    t0 = time.perf_counter()
+    kf = keyed_rows(rng, KEYS_ROWS, N_SHARDS, words)
+    keys = [f"k{r}" for r in range(KEYS_ROWS)]
+    log(f"keys data: kf {KEYS_ROWS} rows at {KEYS_FILL}/1024 on "
+        f"{N_SHARDS} shards, made in {time.perf_counter() - t0:.1f} s")
+
+    # (a) kf: ids from the translate route, bits by id through roaring
+    check(http.post("/index/i/field/kf", b'{"options": {"keys": true}}'
+                    )[0] == 200, "create keyed field kf")
+    st, body, ms = pb_post(http, "/internal/translate/keys", proto.encode(
+        proto.TRANSLATE_KEYS_REQUEST, {"index": "i", "field": "kf",
+                                       "keys": keys}))
+    check(st == 200, f"translate kf keys: HTTP {st} {body[:200]!r}")
+    id_list = proto.decode(proto.TRANSLATE_KEYS_RESPONSE, body)["ids"]
+    check(id_list == list(range(1, KEYS_ROWS + 1)),
+          f"kf's ids: {id_list}")
+    ids = dict(zip(keys, id_list))
+    by_id = {ids[k]: kf[r] for r, k in enumerate(keys)}
+    t0 = time.perf_counter()
+    sent = 0
+    for s in range(N_SHARDS):
+        blob = proto.encode(proto.IMPORT_ROARING_REQUEST, {"views": [
+            {"name": "", "data": roaring_payload(roaring, by_id, s, cpr)}]})
+        sent += len(blob)
+        st, resp, _ = pb_post(http, f"/index/i/field/kf/import-roaring/{s}",
+                              blob)
+        check(st == 200 and resp == b"", f"import-roaring kf shard {s}: "
+                                         f"HTTP {st} {resp[:200]!r}")
+    t1 = time.perf_counter()
+    merged = compact_all()
+    out["times"]["kf_import_s"] = t1 - t0
+    log(f"import: field kf, {N_SHARDS} protobuf roaring payloads, {sent} "
+        f"bytes, in {t1 - t0:.1f} s; merged by one compactor scan in "
+        f"{merged['ms']:.0f} ms")
+    tier = {k: ("gold" if r % 3 == 0 else "silver")
+            for r, k in enumerate(keys)}
+    row_attrs = {k: {"tier": tier[k], "rank": r} for r, k in enumerate(keys)}
+    res, _ms = http.query(" ".join(
+        f'SetRowAttrs(kf, "{k}", tier="{tier[k]}", rank={r})'
+        for r, k in enumerate(keys)))
+    check(res == [None] * KEYS_ROWS, f"SetRowAttrs: {res}")
+
+    # (b) ki: 1M column keys through protobuf /import
+    check(http.post("/index/ki", b'{"options": {"keys": true}}')[0] == 200,
+          "create keyed index ki")
+    check(http.post("/index/ki/field/kr", b'{"options": {"keys": true}}'
+                    )[0] == 200, "create keyed field kr")
+    perm = rng.permutation(KEYS_COLUMNS)
+    col_keys = [f"u{int(n):07d}" for n in perm]
+    ki_rows = rng.integers(0, KEYS_ROW_KEYS, size=KEYS_COLUMNS)
+    row_key = [f"r{i}" for i in range(KEYS_ROW_KEYS)]
+    lat = []
+    t0 = time.perf_counter()
+    for lo in range(0, KEYS_COLUMNS, KEYS_BATCH):
+        body = proto.encode(proto.IMPORT_REQUEST, {
+            "index": "ki", "field": "kr",
+            "rowKeys": [row_key[r] for r in ki_rows[lo:lo + KEYS_BATCH]],
+            "columnKeys": col_keys[lo:lo + KEYS_BATCH]})
+        st, resp, ms = pb_post(http, "/index/ki/field/kr/import", body)
+        check(st == 200 and resp == b"", f"keyed import at {lo}: HTTP {st} "
+                                         f"{resp[:200]!r}")
+        lat.append(ms)
+    load_s = time.perf_counter() - t0
+    compact_all()
+    # the lookup rate: a batch of existing keys from across the import,
+    # whose ids are their positions in it
+    pos = np.sort(rng.choice(KEYS_COLUMNS, KEYS_BATCH, replace=False))
+    t0 = time.perf_counter()
+    st, body, _ = pb_post(http, "/internal/translate/keys", proto.encode(
+        proto.TRANSLATE_KEYS_REQUEST, {"index": "ki", "keys": [
+            col_keys[p] for p in pos]}))
+    lookup_s = time.perf_counter() - t0
+    check(st == 200, f"translate ki keys: HTTP {st}")
+    check(proto.decode(proto.TRANSLATE_KEYS_RESPONSE, body)["ids"]
+          == (pos + 1).tolist(), "ki's ids are not the import order")
+    out["times"].update({
+        "ki_import_batch_ms": spread(lat),
+        "ki_import_keys_per_s": KEYS_COLUMNS / load_s,
+        "ki_lookup_keys_per_s": KEYS_BATCH / lookup_s})
+    log(f"import: ki, {KEYS_COLUMNS} column keys and {KEYS_ROW_KEYS} row "
+        f"keys in {KEYS_COLUMNS // KEYS_BATCH} protobuf /imports, "
+        f"{load_s:.1f} s ({KEYS_COLUMNS / load_s:.0f} keys/s, created with "
+        f"their bits), batch {fmt(spread(lat))}; {KEYS_BATCH} of them "
+        f"looked up through /internal/translate/keys in "
+        f"{lookup_s * 1e3:.0f} ms ({KEYS_BATCH / lookup_s:.0f} keys/s)")
+    attr_pos = sorted(int(p) for p in rng.choice(KEYS_COLUMNS,
+                                                 KEYS_COLUMN_ATTRS,
+                                                 replace=False))
+    ki_attrs = {p: {"seg": f"s{p % 5}", "w": p % 97} for p in attr_pos}
+    st, body = http.post("/index/ki/query?nocache=1", " ".join(
+        f'SetColumnAttrs("{col_keys[p]}", seg="s{p % 5}", w={p % 97})'
+        for p in attr_pos).encode(), "text/plain")
+    check(st == 200, f"SetColumnAttrs: HTTP {st} {body[:200]!r}")
+    first_seen = []
+    for r in ki_rows:
+        if int(r) not in first_seen:
+            first_seen.append(int(r))
+    kd = {"kf": kf, "kf_ids": ids, "tier": tier, "row_attrs": row_attrs,
+          "ki_rows": ki_rows, "ki_cols": col_keys, "ki_attrs": ki_attrs,
+          "ki_row_order": first_seen}
+    t0 = time.perf_counter()
+    wants = keys_oracles(kd, data["f"])
+    log(f"keys oracles in {time.perf_counter() - t0:.1f} s")
+
+    # (c) the keyed path: counts zeroed just before, read just after
+    queries = keys_queries(N_SHARDS)
+    ck.reset_launch_counts()
+    for label, pql, flags, index, req, sites in queries:
+        k0 = ck.launch_counts()
+        lat = []
+        for _ in range(1 + KEYS_RUNS):
+            resp, ms = pb_query(proto, http, pql, flags, index, **req)
+            lat.append(ms)
+            got = keys_answer(proto, label, resp)
+            check(got == wants[label],
+                  f"{pql}{flags} {req}: {str(got)[:300]} differs from the "
+                  f"oracle {str(wants[label])[:300]}")
+        k1 = ck.launch_counts()
+        got = {k: k1[k] - k0[k] for k in k1 if k1[k] != k0[k]}
+        want = {k: n * (1 + KEYS_RUNS) for k, n in sites.items()}
+        check(got == want, f"{pql}{flags}: launched {got}, its sites {want}")
+        out["queries"][label] = {"pql": pql + flags, "request": req,
+                                 "first_ms": lat[0],
+                                 "warm_ms": spread(lat[1:]),
+                                 "launches": got}
+        log(f"keys {label}: {pql}{flags} {req} (protobuf) = oracle; "
+            f"launches {got}; first {lat[0]:.2f} ms, warm "
+            f"{fmt(spread(lat[1:]))}")
+    out["launches"] = ck.launch_counts()
+    # ---- end of the keyed path
+    for k in ("gathered_count_and", "vm_counts", "row_counts_masked",
+              "masked_matrix_counts"):
+        check(out["launches"][k] > 0, f"{k} never launched on the keyed "
+                                      f"path")
+    # (d) the same Count in JSON and in protobuf
+    pql = 'Count(Intersect(Row(kf="k3"), Row(f=1)))'
+    js, pb = [], []
+    for _ in range(1 + KEYS_RUNS):
+        res, ms = http.query(pql)
+        check(res == wants["count_k3_f1"], f"{pql} (JSON): {res}")
+        js.append(ms)
+        resp, ms = pb_query(proto, http, pql)
+        pb.append(ms)
+    out["times"]["count_json_ms"] = spread(js[1:])
+    out["times"]["count_protobuf_ms"] = spread(pb[1:])
+    st, body = ft_get(http, "/schema")
+    schema = {ix["name"]: ix for ix in json.loads(body)["indexes"]}
+    check(schema["ki"]["options"]["keys"]
+          and any(fd["name"] == "kf" and fd["options"]["keys"]
+                  for fd in schema["i"]["fields"]),
+          "GET /schema does not show the keys")
+    log("keys times (host clock): " + "; ".join(
+        f"{k} {fmt(v) if isinstance(v, dict) else f'{v:.1f}'}"
+        for k, v in out["times"].items()))
+    return out
+
+
 HIT_KERNELS = ("gathered_count_and", "vm_counts", "vm_counts_kinds",
                "row_counts_masked", "masked_matrix_counts")
 #: Counts that read field g alone: a write to f leaves their stamps
@@ -3469,8 +3848,8 @@ def run_paths(torch, ck, bm, kp, containers, tape, Server, roaring,
               seed: int, card: dict) -> dict:
     """The server on cuda: the K2 path, the lone query, the coalesced
     path, the scan path, the BSI path, the kinds leg, the ingest phase,
-    the field-types phase, the cache phase, then the timings on their own
-    inputs."""
+    the field-types phase, the keys phase, the cache phase, then the
+    timings on their own inputs."""
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
     words = SHARD_WIDTH // 32
@@ -3506,7 +3885,7 @@ def run_paths(torch, ck, bm, kp, containers, tape, Server, roaring,
         # the phases before the cache phase time kernels and count their
         # launches: every query of theirs passes ?nocache=1
         http = Http(srv.uri, nocache=True)
-        log("phases 5-11c: every query with ?nocache=1 (the result cache, "
+        log("phases 5-11e: every query with ?nocache=1 (the result cache, "
             "on by default, would answer their repeats with no launch); "
             "the cache phase runs with the cache")
         check(http.post("/index/i", b'{"options": {"trackExistence": '
@@ -3530,6 +3909,8 @@ def run_paths(torch, ck, bm, kp, containers, tape, Server, roaring,
                                      out["kinds"].pop("data"), seed)
         out["field_types"] = phase_field_types(ck, srv, http, roaring, data,
                                                cpr, words, seed)
+        out["keys"] = phase_keys(ck, srv, http, roaring, data, cpr, words,
+                                 seed)
         out["cache"] = phase_cache(ck, srv, data, card)
         out["k3"] = phase_k3_time(torch, ck, tape,
                                   out["coalesced"].pop("flush"), card)
@@ -3647,6 +4028,7 @@ def main(argv: list[str] | None = None) -> int:
                     "kinds": out["kinds"],
                     "ingest": out["ingest"],
                     "field_types": out["field_types"],
+                    "keys": out["keys"],
                     "cache": out["cache"],
                     "k3_kinds_us": out["k3k"]["spread_us"],
                     "k3_kinds_shape": out["k3k"]["shape"],
@@ -3667,15 +4049,17 @@ def main(argv: list[str] | None = None) -> int:
                             ("vm_counts_kinds_dfuse", "k3k_fixed_dfuse",
                              ("all_slots_bound_ms", "host_plan_us")))}}))
     # every kernel's launches on its own paths, plus the field-types
-    # phase's and the cache phase's misses
+    # phase's, the keys phase's and the cache phase's misses
     cache_k = out["cache"]["launches"]
     ft_k = out["field_types"]["launches"]
+    keys_k = out["keys"]["launches"]
     log(json.dumps({"kernels": [
         kernel_line("gathered_count_and",
                     "pilosa_tpu_torch/ops/csrc/gathered_count_and.cu",
                     "pilosa_tpu/ops/pallas_kernels.py:244",
                     out["launches"]["gathered_count_and"]
                     + ft_k["gathered_count_and"]
+                    + keys_k["gathered_count_and"]
                     + cache_k["gathered_count_and"],
                     max(k2_err, out["k2"]["max_abs_err"]), out["k2"]),
         # K3 and K3-kinds: launches on their own paths plus the ingest
@@ -3684,7 +4068,8 @@ def main(argv: list[str] | None = None) -> int:
                     "pilosa_tpu/ops/pallas_kernels.py:454",
                     out["coalesced"]["k3_launches"]
                     + out["ingest"]["k3"]["launches"]
-                    + ft_k["vm_counts"] + cache_k["vm_counts"],
+                    + ft_k["vm_counts"] + keys_k["vm_counts"]
+                    + cache_k["vm_counts"],
                     max(k3_err, out["k3"]["max_abs_err"],
                         out["k3_fixed"]["max_abs_err"],
                         out["k3_fixed16"]["max_abs_err"],
@@ -3703,6 +4088,7 @@ def main(argv: list[str] | None = None) -> int:
                     "pilosa_tpu/ops/pallas_kernels.py:145",
                     out["scans"]["launches"]["row_counts_masked"]
                     + ft_k["row_counts_masked"]
+                    + keys_k["row_counts_masked"]
                     + cache_k["row_counts_masked"],
                     max(k4_err, out["k4"]["max_abs_err"]), out["k4"]),
         kernel_line("masked_matrix_counts",
@@ -3710,6 +4096,7 @@ def main(argv: list[str] | None = None) -> int:
                     "pilosa_tpu/ops/pallas_kernels.py:652",
                     out["scans"]["launches"]["masked_matrix_counts"]
                     + ft_k["masked_matrix_counts"]
+                    + keys_k["masked_matrix_counts"]
                     + cache_k["masked_matrix_counts"],
                     max(k5_err, out["k5"]["max_abs_err"]), out["k5"]),
         kernel_line("bsi_compare", "pilosa_tpu_torch/ops/csrc/bsi_compare.cu",

@@ -7,9 +7,12 @@ bool, and, as in the reference, a type string it does not know, served
 as a set field); bit, value and roaring import; the CSV export; and the
 node's admin answers (``hosts``, ``info``, ``version``,
 ``recalculate_caches``) for the one local node, as the reference answers
-with its cluster off (pilosa_tpu/api.py:221-262, 510-567).  The cluster
-state machine, key translation and replica fan-out are not part of the
-port yet; the node is always NORMAL.
+with its cluster off (pilosa_tpu/api.py:221-262, 510-567).  String keys
+translate through the local branch of the reference's
+``node.translate_keys_cluster`` (pilosa_tpu/parallel/node.py:710):
+existing keys resolve, new ones are created in the index's or field's
+store.  The cluster state machine, its key routing and replica fan-out
+are not part of the port yet; the node is always NORMAL.
 """
 
 from __future__ import annotations
@@ -49,8 +52,12 @@ class API:
     def query(self, index: str, pql, shards=None,
               exclude_columns: bool = False, containers: bool = True,
               coalesce: bool = True, vm: bool = True,
-              delta: bool = True, cache: bool = True) -> list:
+              delta: bool = True, cache: bool = True,
+              column_attrs: bool = False,
+              exclude_row_attrs: bool = False) -> list:
         opt = ExecOptions(exclude_columns=exclude_columns,
+                          column_attrs=column_attrs,
+                          exclude_row_attrs=exclude_row_attrs,
                           shards=None if shards is None else list(shards),
                           coalesce=coalesce, containers=containers, vm=vm,
                           delta=delta, cache=cache)
@@ -63,15 +70,7 @@ class API:
 
     def apply_schema(self, schema: list[dict]) -> None:
         """Idempotent schema merge (api.go ApplySchema): the indexes and
-        fields that do not exist yet are created.  Keys, which the port
-        does not have, are refused before anything is created."""
-        for idesc in schema:
-            if (IndexOptions.from_dict(idesc.get("options", {})).keys
-                    or any(FieldOptions.from_dict(
-                        fd.get("options", {})).keys
-                           for fd in idesc.get("fields", []))):
-                raise ApiError("string keys are not supported by this port "
-                               "yet")
+        fields that do not exist yet are created."""
         self.holder.apply_schema(schema)
 
     def index(self, name: str):
@@ -83,8 +82,6 @@ class API:
     def create_index(self, name: str, options: IndexOptions | None = None):
         if self.holder.index(name) is not None:
             raise ConflictError(f"index already exists: {name}")
-        if options is not None and options.keys:
-            raise ApiError("string keys are not supported by this port yet")
         return self.holder.create_index(name, options)
 
     def delete_index(self, name: str) -> None:
@@ -105,11 +102,7 @@ class API:
         idx = self.index(index)
         if idx.field(name) is not None:
             raise ConflictError(f"field already exists: {name}")
-        options = options or FieldOptions()
-        if options.keys:
-            raise ApiError("fields with keys are not supported by this port "
-                           "yet")
-        return idx.create_field(name, options)
+        return idx.create_field(name, options or FieldOptions())
 
     def delete_field(self, index: str, name: str) -> None:
         """Delete a field, its files, its device forms and every result-
@@ -124,11 +117,17 @@ class API:
                     timestamps=None, row_keys=None, col_keys=None,
                     clear: bool = False) -> None:
         """Bulk bit import; imported columns join the existence field
-        (pilosa_tpu/api.py:269)."""
-        if row_keys or col_keys:
-            raise ApiError("string keys are not supported by this port yet")
+        (pilosa_tpu/api.py:269).  Column keys translate in the index's
+        store, row keys in the field's, each created when new."""
         idx = self.index(index)
         f = self.field(index, field)
+        if col_keys:
+            cols = self.translate_keys(index, None, col_keys, create=True)
+        if row_keys:
+            cols_n = len(cols)
+            rows = self.translate_keys(index, field, row_keys, create=True)
+            if len(rows) != cols_n:
+                raise ApiError("row keys and columns length mismatch")
         rows = np.asarray(rows if len(rows) else [], dtype=np.int64)
         cols = np.asarray(cols if len(cols) else [], dtype=np.int64)
         f.import_bits(rows, cols, timestamps, clear=clear)
@@ -139,10 +138,10 @@ class API:
                       col_keys=None) -> None:
         """Bulk BSI value import; imported columns join the existence
         field (pilosa_tpu/api.py:339)."""
-        if col_keys:
-            raise ApiError("string keys are not supported by this port yet")
         idx = self.index(index)
         f = self.field(index, field)
+        if col_keys:
+            cols = self.translate_keys(index, None, col_keys, create=True)
         cols, values = list(cols), list(values)
         f.import_values(cols, values)
         idx.import_existence(cols)
@@ -163,14 +162,35 @@ class API:
             f.import_roaring(shard, data, clear=clear,
                              view=vname or VIEW_STANDARD)
 
+    def translate_keys(self, index: str, field: str | None, keys,
+                       create: bool = False) -> list:
+        """Keys -> ids in the index's column store (``field`` None) or
+        the field's row store, new keys created when ``create``: the
+        local branch of the reference's ``node.translate_keys_cluster``
+        (pilosa_tpu/parallel/node.py:710-740), the one node being the
+        coordinator.  The store's batched call looks the keys up before
+        it creates any, so one call does both."""
+        idx = self.holder.index(index)
+        store = None
+        if idx is not None:
+            if field:
+                f = idx.field(field)
+                store = None if f is None else f.translate_store
+            else:
+                store = idx.translate_store
+        if store is None:
+            raise ValueError(f"no translate store for {index}/{field}")
+        return store.translate_keys(list(keys), create=create)
+
     # ------------------------------------------------------------- export
 
     def export_csv(self, index: str, field: str, shard: int,
                    w: io.TextIOBase) -> None:
         """``row,col`` lines of one shard's standard view, rows ascending
-        and columns ascending within a row (api.go:500 API.ExportCSV;
-        pilosa_tpu/api.py:510)."""
-        self.index(index)
+        and columns ascending within a row, each label the key where the
+        field or index has keys and the key exists (api.go:500
+        API.ExportCSV; pilosa_tpu/api.py:510)."""
+        idx = self.index(index)
         f = self.field(index, field)
         frag = f.fragment(shard)
         if frag is None:
@@ -178,9 +198,16 @@ class API:
         base = shard * SHARD_WIDTH
         for row_id in frag.row_ids():
             words = frag.row(row_id)
-            offs = np.nonzero(np.unpackbits(words.view(np.uint8),
-                                            bitorder="little"))[0]
-            w.write("".join(f"{row_id},{base + int(o)}\n" for o in offs))
+            cols = base + np.nonzero(np.unpackbits(
+                words.view(np.uint8), bitorder="little"))[0]
+            row_label = row_id
+            if f.options.keys:
+                row_label = f.translate_store.translate_id(row_id) or row_id
+            col_labels = [int(c) for c in cols]
+            if idx.options.keys:
+                keys = idx.translate_store.translate_ids(col_labels)
+                col_labels = [k or c for k, c in zip(keys, col_labels)]
+            w.write("".join(f"{row_label},{c}\n" for c in col_labels))
 
     # -------------------------------------------------------------- admin
 

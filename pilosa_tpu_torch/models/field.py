@@ -63,6 +63,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.models.attrs import AttrStore
 from pilosa_tpu_torch.models.timequantum import (TimeQuantum, views_by_time,
                                                  views_by_time_range)
 from pilosa_tpu_torch.models.view import VIEW_BSI_PREFIX, VIEW_STANDARD, View
@@ -269,6 +270,22 @@ class Field:
             self._load_meta()
             self._open_views()
         self._load_shards()
+        self.row_attrs = AttrStore(
+            None if path is None else os.path.join(path, ".row_attrs.db"))
+        self._translate_store = None
+
+    @property
+    def translate_store(self):
+        """The row-key translate store, opened at first use
+        (pilosa_tpu/models/field.py:259-269)."""
+        if self._translate_store is None:
+            from pilosa_tpu_torch.storage.translate import \
+                open_translate_store
+
+            self._translate_store = open_translate_store(
+                None if self.path is None
+                else os.path.join(self.path, ".keys.db"))
+        return self._translate_store
 
     # ------------------------------------------------------------ metadata
 
@@ -1146,6 +1163,9 @@ class Field:
         container engine's memo entries over its container leaves."""
         for view in self.views.values():
             view.close()
+        self.row_attrs.close()
+        if self._translate_store is not None:
+            self._translate_store.close()
         with self._lock:
             uids = set()
             for _gens, value in self._device_cache.values():

@@ -3,8 +3,10 @@
 Port of pilosa_tpu/models/index.py: the ``.meta`` options file in the
 reference's format, field creation and deletion, and, with ``track_existence`` (the default), the
 hidden ``_exists`` field recording which columns hold any data -- the
-universe ``Not()`` complements within.  String keys are not part of the
-port yet.
+universe ``Not()`` complements within.  With ``keys`` the index
+translates string column keys through a translate store opened lazily
+in ``.keys.db`` (pilosa_tpu/models/index.py:52-68); column attributes
+live in ``.column_attrs.db``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.models.attrs import AttrStore
 from pilosa_tpu_torch.models.field import (
     Field,
     FieldOptions,
@@ -59,6 +62,21 @@ class Index:
         if self.options.track_existence and EXISTENCE_FIELD not in self.fields:
             self._create_field(EXISTENCE_FIELD,
                                FieldOptions(cache_type="none"))
+        self.column_attrs = AttrStore(
+            None if path is None else os.path.join(path, ".column_attrs.db"))
+        self._translate_store = None
+
+    @property
+    def translate_store(self):
+        """The column-key translate store, opened at first use."""
+        if self._translate_store is None:
+            from pilosa_tpu_torch.storage.translate import \
+                open_translate_store
+
+            self._translate_store = open_translate_store(
+                None if self.path is None
+                else os.path.join(self.path, ".keys.db"))
+        return self._translate_store
 
     @property
     def _meta_path(self) -> str:
@@ -141,6 +159,9 @@ class Index:
     def close(self) -> None:
         for f in self.fields.values():
             f.close()
+        self.column_attrs.close()
+        if self._translate_store is not None:
+            self._translate_store.close()
 
     def snapshot(self) -> None:
         for f in self.fields.values():

@@ -28,6 +28,20 @@ class Row:
         self.exclude_columns = False
         self.wants_column_attrs = False
 
+    @classmethod
+    def from_columns(cls, columns) -> "Row":
+        """A Row holding the given absolute column ids (the protobuf
+        decoder's form of a result)."""
+        row = cls()
+        for col in columns:
+            shard, off = divmod(int(col), SHARD_WIDTH)
+            seg = row.segments.get(shard)
+            if seg is None:
+                seg = np.zeros(bm.n_words(SHARD_WIDTH), dtype=np.uint32)
+                row.segments[shard] = seg
+            seg[off // bm.WORD_BITS] |= np.uint32(1 << (off % bm.WORD_BITS))
+        return row
+
     def columns(self) -> np.ndarray:
         """Sorted absolute column ids."""
         parts = []

@@ -86,8 +86,23 @@ views, so a first write into a new view misses.  ``Rows`` over a time
 field with ``from``/``to`` (or no standard view) reads the covering
 views.  ``Set`` takes a timestamp into a time field's views.
 
-Not part of the port yet: the cluster fan-out, string keys and attributes
-(``SetRowAttrs``/``SetColumnAttrs``).
+String keys and attributes (executor.py:1486-1495, 1804-1895,
+2968-3200): before any call runs, its tree is translated once (a clone):
+a write creates its keys, a read that names a missing key becomes the
+``_Empty``/``_Noop``/``_EmptyRows`` sentinel; after it runs, ids in its
+result go back to keys (Row columns of a keyed index, TopN and MinRow/
+MaxRow pairs, Rows ids, GroupBy ``rowKey``).  The result cache is probed
+with the translated tree, so a keyed query and its id form share an
+entry.  ``SetRowAttrs``/``SetColumnAttrs`` merge into the field's and
+the index's attribute stores; a plain ``Row`` carries its row's
+attributes unless ``excludeRowAttrs`` (attached after the cache probe,
+so a cached Row never carries stale ones), and ``TopN(attrName=,
+attrValues=)`` keeps the rows whose attribute is one of the values,
+applied after the cached counts.  A row id past int64 has no attributes
+(the reference answers 500 there: ROADMAP Queue 3 item 7).
+
+Not part of the port yet: the cluster fan-out, with its key routing and
+attribute forwarding.
 """
 
 from __future__ import annotations
@@ -145,10 +160,25 @@ class ExecOptions:
     delta: bool = True
     # ?nocache=1: skip the result cache (no probe, no fill)
     cache: bool = True
+    # ?excludeRowAttrs=true: a Row result carries no row attributes
+    exclude_row_attrs: bool = False
+    # ?columnAttrs=true: Row results ask for their columns' attributes
+    column_attrs: bool = False
 
 
 class ExecutionError(ValueError):
     pass
+
+
+#: Sentinel calls that a read-path key miss becomes (executor.py:247-249):
+#: an empty Row, a write that changes nothing, an empty Rows list.
+_EMPTY_CALL = "_Empty"
+_NOOP_CALL = "_Noop"
+_EMPTY_ROWS_CALL = "_EmptyRows"
+
+#: Row ids at or past this have no attribute row (sqlite's INTEGER is
+#: int64)
+_ATTR_ID_LIMIT = 1 << 63
 
 
 def _next_pow2(n: int) -> int:
@@ -180,15 +210,23 @@ class Executor:
         idx = self.holder.index(index_name)
         if idx is None:
             raise ExecutionError(f"index not found: {index_name}")
-        for call in query.calls:
-            self._check_keys(idx, call)
-        return [self._execute_call(idx, call, shards, opt)
-                for call in query.calls]
+        # keys translate once, before any call runs (executor.py:371-375)
+        calls = [self._translate_call(idx, c) for c in query.calls]
+        results = [self._execute_call(idx, call, shards, opt)
+                   for call in calls]
+        return [self._translate_result(idx, call, res)
+                for call, res in zip(calls, results)]
 
     # ----------------------------------------------------------- dispatch
 
     def _execute_call(self, idx, call: Call, shards, opt: ExecOptions):
         name = call.name
+        if name == _EMPTY_CALL:
+            return Row()
+        if name == _NOOP_CALL:
+            return False
+        if name == _EMPTY_ROWS_CALL:
+            return []
         if name == "Set":
             return self._execute_set(idx, call)
         if name == "Clear":
@@ -197,9 +235,10 @@ class Executor:
             return self._execute_clear_row(idx, call)
         if name == "Store":
             return self._execute_store(idx, call, shards, opt)
-        if name in ("SetRowAttrs", "SetColumnAttrs"):
-            raise ExecutionError(f"{name}() is not supported by this port "
-                                 f"yet")
+        if name == "SetRowAttrs":
+            return self._execute_set_row_attrs(idx, call)
+        if name == "SetColumnAttrs":
+            return self._execute_set_column_attrs(idx, call)
         if name == "Count":
             return self._execute_count(idx, call, shards, opt)
         if name == "TopN":
@@ -218,33 +257,6 @@ class Executor:
         # and any other name, which the per-shard walk refuses as the
         # reference does (executor.py:477, 1581-1582)
         return self._execute_bitmap_call(idx, call, shards, opt)
-
-    def _check_keys(self, idx, call: Call) -> None:
-        """String keys are not part of the port: refuse them with the
-        reference's errors for an index or field without keys."""
-        if call.name in ("Set", "Clear") and isinstance(
-                call.args.get("_col"), str):
-            raise ExecutionError(f"index {idx.name!r} does not use string "
-                                 f"keys (option keys=true)")
-        if call.name in ("Set", "Clear", "Row") \
-                and not call.has_condition_arg():
-            fname = next((k for k in call.args if not k.startswith("_")
-                          and k not in ("from", "to")), None)
-            if fname is not None and isinstance(call.args[fname], str):
-                if idx.field(fname) is None:
-                    raise ExecutionError(f"field not found: {fname}")
-                raise ExecutionError(f"field {fname!r} does not use string "
-                                     f"keys (option keys=true)")
-        if call.name == "Rows":
-            for arg in ("previous", "column"):
-                if isinstance(call.args.get(arg), str):
-                    raise ExecutionError(f"Rows({arg}=...): string keys are "
-                                         f"not supported by this port yet")
-        for c in call.children:
-            self._check_keys(idx, c)
-        filt = call.args.get("filter")
-        if isinstance(filt, Call):
-            self._check_keys(idx, filt)
 
     def _target_shards(self, idx, shards, opt: ExecOptions) -> list[int]:
         if opt.shards is not None:
@@ -587,6 +599,18 @@ class Executor:
         for shard, words in partials:
             if words.any():
                 row.segments[shard] = words
+        # a plain Row carries its row's attributes (executor.py:1486-1495)
+        if (call.name == "Row" and not opt.exclude_row_attrs
+                and not call.has_condition_arg()):
+            try:
+                fname = call.field_arg()
+            except ValueError:
+                fname = None
+            f = idx.field(fname) if fname else None
+            rowid = call.args.get(fname)
+            if (f is not None and isinstance(rowid, int)
+                    and rowid < _ATTR_ID_LIMIT):
+                row.attrs = f.row_attrs.attrs(rowid)
         return row
 
     def _fused_row_words(self, idx, call: Call, g: tuple[int, ...],
@@ -632,6 +656,8 @@ class Executor:
         """Evaluate a bitmap tree on one shard -> int32 words on the
         device, or None for empty (executor.py:1498)."""
         name = call.name
+        if name == _EMPTY_CALL:
+            return None
         if name in ("Row", "Range"):
             cond = call.condition_arg()
             if cond is not None:
@@ -787,10 +813,8 @@ class Executor:
         tanimoto = call.uint_arg("tanimotoThreshold") or 0
         if tanimoto > 100:
             raise ExecutionError("Tanimoto Threshold is from 1 to 100 only")
-        if "attrName" in call.args or "attrValues" in call.args:
-            raise ExecutionError("TopN(attrName=..., attrValues=...): "
-                                 "attributes are not supported by this port "
-                                 "yet")
+        attr_name = call.string_arg("attrName")
+        attr_values = call.args.get("attrValues")
         shards = self._target_shards(idx, shards, opt)
         filter_call = call.children[0] if call.children else None
 
@@ -798,7 +822,8 @@ class Executor:
         # merge: one shard, and no cut applied after the counts.  0
         # demands a complete cache.
         single_shard = len(shards) == 1
-        cache_n = n if single_shard and not (ids_arg or threshold) else 0
+        cache_n = (n if single_shard and not (ids_arg or attr_name
+                                              or threshold) else 0)
 
         def map_fn(shard):
             view = f.view(VIEW_STANDARD)
@@ -840,6 +865,15 @@ class Executor:
         if ids_arg:
             allowed = set(ids_arg)
             totals = {r: c for r, c in totals.items() if r in allowed}
+        if attr_name:
+            # after the counts, cached or not: attributes carry no
+            # generation (executor.py:1886-1895)
+            if not isinstance(attr_values, list):
+                raise ExecutionError("TopN() attrValues must be a list")
+            allowed_vals = set(attr_values)
+            row_attrs = f.row_attrs.attrs_bulk(totals)
+            totals = {r: c for r, c in totals.items()
+                      if row_attrs.get(r, {}).get(attr_name) in allowed_vals}
         if tanimoto and filter_call is not None:
             # Tanimoto similarity (fragment.go:1588-1652): the full row
             # count strictly inside (|src|*T/100, |src|*100/T), then the
@@ -1486,14 +1520,11 @@ class Executor:
         if len(call.children) != 1:
             raise ExecutionError("Options() requires a single child query")
         new_opt = replace(opt)
-        column_attrs = False
         for key, value in call.args.items():
-            # the port keeps no attributes: both attribute options answer
-            # as the reference does with none set
             if key == "columnAttrs":
-                column_attrs = bool(value)
+                new_opt.column_attrs = bool(value)
             elif key == "excludeRowAttrs":
-                pass
+                new_opt.exclude_row_attrs = bool(value)
             elif key == "excludeColumns":
                 new_opt.exclude_columns = bool(value)
             elif key == "shards":
@@ -1505,6 +1536,207 @@ class Executor:
         res = self._execute_call(idx, call.children[0], shards, new_opt)
         if isinstance(res, Row):
             res.exclude_columns = new_opt.exclude_columns
-            res.wants_column_attrs = column_attrs
+            res.wants_column_attrs = new_opt.column_attrs
+        return res
+
+    # ------------------------------------------------------- attributes
+
+    def _execute_set_row_attrs(self, idx, call: Call) -> None:
+        """Merge attributes into a row's set (executor.py:2968-2982, one
+        node: nothing to forward)."""
+        fname = call.args.get("_field")
+        if not fname:
+            raise ExecutionError("SetRowAttrs() requires a field argument")
+        f = self._field(idx, fname)
+        row_id = call.uint_arg("_row")
+        if row_id is None:
+            raise ExecutionError("SetRowAttrs() row argument required")
+        attrs = {k: v for k, v in call.args.items() if not k.startswith("_")}
+        f.row_attrs.set_attrs(row_id, attrs)
+        return None
+
+    def _execute_set_column_attrs(self, idx, call: Call) -> None:
+        """Merge attributes into a column's set (executor.py:2984-2990)."""
+        col = call.uint_arg("_col")
+        if col is None:
+            raise ExecutionError("SetColumnAttrs() column argument required")
+        attrs = {k: v for k, v in call.args.items() if not k.startswith("_")}
+        idx.column_attrs.set_attrs(col, attrs)
+        return None
+
+    # ----------------------------------------------------- key translation
+
+    def _translate_call(self, idx, call: Call) -> Call:
+        """String keys -> ids on a clone of the call tree (executor.py:
+        3027-3032): writes create their keys, a read that names a missing
+        key becomes a sentinel."""
+        return self._translate_call_rec(idx, call.clone())
+
+    def _translate_col_key(self, idx, call: Call, create: bool) -> bool:
+        """Translate a string ``_col`` in place; False when the key does
+        not exist and was not created."""
+        v = call.args.get("_col")
+        if not isinstance(v, str):
+            return True
+        if not idx.options.keys:
+            raise ExecutionError(f"index {idx.name!r} does not use string "
+                                 f"keys (option keys=true)")
+        id_ = self._translate_one(idx, None, v, create)
+        if id_ is None:
+            return False
+        call.args["_col"] = id_
+        return True
+
+    @staticmethod
+    def _translate_one(idx, field: str | None, key: str, create: bool):
+        """Key -> id in the index's or the field's store (the reference's
+        no-node branch, executor.py:3051-3063)."""
+        store = (idx.translate_store if field is None
+                 else idx.field(field).translate_store)
+        return store.translate_key(key, create=create)
+
+    @staticmethod
+    def _ids_to_keys(idx, field: str | None, ids) -> list:
+        store = (idx.translate_store if field is None
+                 else idx.field(field).translate_store)
+        return store.translate_ids(list(ids))
+
+    def _translate_row_key(self, idx, call: Call, arg_key: str,
+                           create: bool) -> bool:
+        """Translate a string row value under ``args[arg_key]``, where
+        ``arg_key`` names the field; False on a read-path miss."""
+        v = call.args.get(arg_key)
+        if not isinstance(v, str):
+            return True
+        f = idx.field(arg_key)
+        if f is None:
+            raise ExecutionError(f"field not found: {arg_key}")
+        if not f.options.keys:
+            raise ExecutionError(f"field {arg_key!r} does not use string "
+                                 f"keys (option keys=true)")
+        id_ = self._translate_one(idx, arg_key, v, create)
+        if id_ is None:
+            return False
+        call.args[arg_key] = id_
+        return True
+
+    def _keyed_field(self, idx, fname: str):
+        f = idx.field(fname)
+        if f is None:
+            raise ExecutionError(f"field not found: {fname}")
+        if not f.options.keys:
+            raise ExecutionError(f"field {fname!r} does not use string keys")
+        return f
+
+    def _translate_call_rec(self, idx, call: Call) -> Call:
+        """executor.py:3088-3172."""
+        name = call.name
+        if name == "Set":
+            self._translate_col_key(idx, call, create=True)
+            self._translate_row_key(idx, call, call.field_arg(), create=True)
+            return call
+        if name == "Clear":
+            if not self._translate_col_key(idx, call, create=False):
+                return Call(_NOOP_CALL)
+            if not self._translate_row_key(idx, call, call.field_arg(),
+                                           create=False):
+                return Call(_NOOP_CALL)
+            return call
+        if name == "SetColumnAttrs":
+            self._translate_col_key(idx, call, create=True)
+            return call
+        if name == "SetRowAttrs":
+            fname = call.args.get("_field")
+            v = call.args.get("_row")
+            if isinstance(v, str) and fname:
+                self._keyed_field(idx, fname)
+                call.args["_row"] = self._translate_one(idx, fname, v,
+                                                        create=True)
+            return call
+        if name in ("Store", "ClearRow"):
+            if not self._translate_row_key(idx, call, call.field_arg(),
+                                           create=name == "Store"):
+                return Call(_NOOP_CALL)
+            call.children = [self._translate_call_rec(idx, c)
+                             for c in call.children]
+            return call
+        if name in ("Row", "Range"):
+            if call.has_condition_arg():
+                return call
+            fname = next((k for k in call.args if not k.startswith("_")
+                          and k not in ("from", "to")), None)
+            if fname is None:
+                return call
+            if not self._translate_row_key(idx, call, fname, create=False):
+                return Call(_EMPTY_CALL)
+            return call
+        if name == "Rows":
+            fname = call.args.get("_field") or call.args.get("field")
+            prev = call.args.get("previous")
+            if isinstance(prev, str) and fname:
+                self._keyed_field(idx, fname)
+                id_ = self._translate_one(idx, fname, prev, create=False)
+                if id_ is None:
+                    raise ExecutionError(f"previous key not found: {prev!r}")
+                call.args["previous"] = id_
+            col = call.args.get("column")
+            if isinstance(col, str):
+                if not idx.options.keys:
+                    raise ExecutionError(f"index {idx.name!r} does not use "
+                                         f"string keys")
+                id_ = self._translate_one(idx, None, col, create=False)
+                if id_ is None:
+                    return Call(_EMPTY_ROWS_CALL)
+                call.args["column"] = id_
+            return call
+        # structural calls: the children and a GroupBy's filter
+        call.children = [self._translate_call_rec(idx, c)
+                         for c in call.children]
+        filt = call.args.get("filter")
+        if isinstance(filt, Call):
+            call.args["filter"] = self._translate_call_rec(idx, filt.clone())
+        return call
+
+    def _translate_result(self, idx, call: Call, res):
+        """Ids in a result back to keys (executor.py:3174-3217)."""
+        if isinstance(res, Row):
+            if idx.options.keys:
+                keys = self._ids_to_keys(idx, None, res.columns())
+                res.keys = [k or "" for k in keys]
+            return res
+        if isinstance(res, Pair) or (isinstance(res, list) and res
+                                     and isinstance(res[0], Pair)):
+            fname = call.args.get("_field") or call.args.get("field")
+            f = idx.field(fname) if fname else None
+            if f is not None and f.options.keys:
+                pairs = [res] if isinstance(res, Pair) else res
+                keys = self._ids_to_keys(idx, f.name, [p.id for p in pairs])
+                for p, k in zip(pairs, keys):
+                    p.key = k or ""
+            return res
+        if call.name == "Rows" and isinstance(res, list):
+            fname = call.args.get("_field") or call.args.get("field")
+            f = idx.field(fname) if fname else None
+            if f is not None and f.options.keys:
+                return [k or "" for k in self._ids_to_keys(idx, f.name, res)]
+            return res
+        if call.name == "GroupBy" and isinstance(res, list):
+            # one translation per keyed field, not one per group row
+            by_field: dict[str, set[int]] = {}
+            for gc in res:
+                for fr in gc.group:
+                    f = idx.field(fr.field)
+                    if f is not None and f.options.keys:
+                        by_field.setdefault(f.name, set()).add(fr.row_id)
+            keymaps = {
+                fname: dict(zip(sorted(ids),
+                                self._ids_to_keys(idx, fname, sorted(ids))))
+                for fname, ids in by_field.items()
+            }
+            for gc in res:
+                for fr in gc.group:
+                    if fr.field in keymaps:
+                        fr.row_key = keymaps[fr.field].get(fr.row_id) or ""
+            return res
         return res
 

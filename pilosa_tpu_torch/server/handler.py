@@ -15,7 +15,9 @@ serves, with the reference's status codes and bodies:
     POST   /index/{index}/field/{field}/import
     POST   /index/{index}/field/{field}/import-value
     POST   /index/{index}/field/{field}/import-roaring/{shard}
-    POST   /index/{index}/query        (raw PQL or JSON {"query": ...})
+    POST   /index/{index}/query        (raw PQL, JSON {"query": ...} or
+                                        a protobuf QueryRequest)
+    POST   /internal/translate/keys    (JSON or protobuf)
     GET    /export?index=&field=&shard=  (text/csv)
     GET    /debug/containers
     GET    /debug/ragged
@@ -28,10 +30,13 @@ answer (its update check never runs).
 
 ``serialize_result`` is the reference's (handler.py:46), so the JSON of
 a query is byte-identical between the two packages.  Built on the
-stdlib ThreadingHTTPServer.  Protobuf bodies are not part of the port
-yet: the query and import routes refuse one with a 400, with the
-reference decoder's message where the body is not protobuf at all
-(``_refuse_protobuf``).
+stdlib ThreadingHTTPServer.  The query and import routes negotiate JSON
+and protobuf as the reference does (pilosa_tpu/server/handler.py:
+677-1018; wire schemas in ``pilosa_tpu_torch.proto``): a body sent as
+``application/x-protobuf`` is decoded as the route's message, and an
+``Accept`` naming protobuf gets a protobuf answer, a query's error as
+``QueryResponse.err`` with status 400.  ``GET /internal/translate/data``,
+which feeds replicas, waits for the cluster.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
+from pilosa_tpu_torch import proto
 from pilosa_tpu_torch.api import API, ApiError, ConflictError, NotFoundError
 from pilosa_tpu_torch.models.field import FieldOptions
 from pilosa_tpu_torch.models.index import IndexOptions
@@ -56,54 +62,6 @@ from pilosa_tpu_torch.parallel.results import (GroupCount, Pair, PairField,
 
 #: largest accepted request body
 MAX_REQUEST_BYTES = 256 << 20
-
-
-def _read_varint(data: bytes, i: int) -> tuple[int, int]:
-    """One protobuf varint (pilosa_tpu/proto.py:45)."""
-    n = shift = 0
-    while True:
-        if i >= len(data):
-            raise ValueError("truncated varint")
-        b = data[i]
-        i += 1
-        n |= (b & 0x7F) << shift
-        if not b & 0x80:
-            return n, i
-        shift += 7
-        if shift >= 70:
-            raise ValueError("varint too long")
-
-
-def _refuse_protobuf(req, body: bytes) -> None:
-    """A body sent as ``application/x-protobuf`` is refused, never read
-    as PQL or JSON.  The reference decodes it (pilosa_tpu/proto.py:204);
-    a body that breaks the wire format gets that decoder's error, and a
-    well-formed message the port's own, since it has no protobuf
-    schemas yet."""
-    if "protobuf" not in req.headers.get("Content-Type", ""):
-        return
-    i = 0
-    while i < len(body):
-        tag, i = _read_varint(body, i)
-        wire = tag & 7
-        if wire == 0:
-            _, i = _read_varint(body, i)
-        elif wire == 1:
-            if i + 8 > len(body):
-                raise ValueError("truncated fixed64")
-            i += 8
-        elif wire == 2:
-            ln, i = _read_varint(body, i)
-            if i + ln > len(body):
-                raise ValueError("truncated length-delimited field")
-            i += ln
-        elif wire == 5:
-            if i + 4 > len(body):
-                raise ValueError("truncated fixed32")
-            i += 4
-        else:
-            raise ValueError(f"unsupported wire type {wire}")
-    raise ApiError("protobuf bodies are not supported by this port yet")
 
 
 def _parse_ts(t):
@@ -277,12 +235,28 @@ class Handler:
         req.end_headers()
         req.wfile.write(data)
 
-    def _bytes(self, req, data: bytes, ctype: str) -> None:
-        req.send_response(200)
+    def _bytes(self, req, data: bytes, ctype: str, status: int = 200
+               ) -> None:
+        req.send_response(status)
         req.send_header("Content-Type", ctype)
         req.send_header("Content-Length", str(len(data)))
         req.end_headers()
         req.wfile.write(data)
+
+    def _proto(self, req, payload: bytes, status: int = 200) -> None:
+        try:
+            self._bytes(req, payload, "application/protobuf", status)
+        except (BrokenPipeError, ConnectionResetError):
+            pass
+
+    def _import_ok(self, req) -> None:
+        """An import's answer: an empty protobuf ImportResponse when the
+        client accepts protobuf, else JSON {} (pilosa_tpu/server/
+        handler.py:862-875)."""
+        if "protobuf" in req.headers.get("Accept", ""):
+            self._proto(req, proto.encode(proto.IMPORT_RESPONSE, {}))
+        else:
+            self._json(req, {})
 
     def _error(self, req, status: int, msg: str) -> None:
         try:
@@ -358,50 +332,134 @@ class Handler:
 
         self._json(req, containers.debug())
 
+    @route("POST", "/internal/translate/keys")
+    def handle_translate_keys(self, req, params, path, body):
+        """Keys -> ids, created when new: JSON or protobuf
+        TranslateKeysRequest in, the same form out as ``Accept`` asks
+        (pilosa_tpu/server/handler.py:677-696)."""
+        if "protobuf" in req.headers.get("Content-Type", ""):
+            d = proto.decode(proto.TRANSLATE_KEYS_REQUEST, body)
+        else:
+            d = json.loads(body)
+        ids = self.api.translate_keys(d["index"], d.get("field") or None,
+                                      d.get("keys") or [], create=True)
+        ids = [int(i) for i in ids]
+        if "protobuf" in req.headers.get("Accept", ""):
+            self._proto(req, proto.encode(proto.TRANSLATE_KEYS_RESPONSE,
+                                          {"ids": ids}))
+        else:
+            self._json(req, {"ids": ids})
+
     @route("POST", "/index/{index}/query")
     def handle_post_query(self, req, params, path, body):
-        _refuse_protobuf(req, body)
-        pql = body.decode()
-        if "json" in req.headers.get("Content-Type", ""):
-            pql = json.loads(pql).get("query", "")
+        """PQL in raw text, JSON or a protobuf QueryRequest; the answer
+        in protobuf when ``Accept`` asks for it, else JSON
+        (pilosa_tpu/server/handler.py:713-860)."""
+        ctype = req.headers.get("Content-Type", "")
+        proto_accept = "protobuf" in req.headers.get("Accept", "")
         shards = None
+        if "protobuf" in ctype:
+            preq = proto.decode(proto.QUERY_REQUEST, body)
+            pql = preq["query"]
+            shards = [int(s) for s in preq["shards"]] or None
+            column_attrs = preq["columnAttrs"]
+            exclude_row_attrs = preq["excludeRowAttrs"]
+            exclude_columns = preq["excludeColumns"]
+        else:
+            pql = body.decode()
+            if "json" in ctype:
+                pql = json.loads(pql).get("query", "")
+            column_attrs = params.get("columnAttrs") == "true"
+            exclude_row_attrs = params.get("excludeRowAttrs") == "true"
+            exclude_columns = params.get("excludeColumns") == "true"
         if params.get("shards"):
             shards = [int(s) for s in params["shards"].split(",")]
-        exclude_columns = params.get("excludeColumns") == "true"
-        results = self.api.query(
-            path["index"], pql, shards=shards,
-            exclude_columns=exclude_columns,
-            containers=params.get("nocontainers") not in ("1", "true"),
-            # ?nocoalesce=true: no cross-query batching for this request
-            coalesce=params.get("nocoalesce") != "true",
-            # ?novm=1: coalesced sparse Counts take the dense engines
-            vm=params.get("novm") not in ("1", "true"),
-            # ?nodelta=1: compact pending ingest deltas up front and read
-            # pure base state (pilosa_tpu/server/handler.py:779-782)
-            delta=params.get("nodelta") not in ("1", "true"),
-            # ?nocache=1: a real execution, no result-cache probe or fill
-            # (pilosa_tpu/server/handler.py:776-778)
-            cache=params.get("nocache") not in ("1", "true"))
+        # ?partial=1 or X-Pilosa-Partial: the degraded-read meta, on a
+        # JSON answer only (pilosa_tpu/server/handler.py:756-758,
+        # 846-853).  One node misses no shard.
+        partial = (not proto_accept
+                   and (params.get("partial") in ("1", "true")
+                        or req.headers.get("X-Pilosa-Partial")
+                        in ("1", "true")))
+        try:
+            results = self.api.query(
+                path["index"], pql, shards=shards,
+                column_attrs=column_attrs,
+                exclude_row_attrs=exclude_row_attrs,
+                exclude_columns=exclude_columns,
+                containers=params.get("nocontainers") not in ("1", "true"),
+                # ?nocoalesce=true: no cross-query batching for this
+                # request
+                coalesce=params.get("nocoalesce") != "true",
+                # ?novm=1: coalesced sparse Counts take the dense engines
+                vm=params.get("novm") not in ("1", "true"),
+                # ?nodelta=1: compact pending ingest deltas up front and
+                # read pure base state (pilosa_tpu/server/handler.py:
+                # 779-782)
+                delta=params.get("nodelta") not in ("1", "true"),
+                # ?nocache=1: a real execution, no result-cache probe or
+                # fill (pilosa_tpu/server/handler.py:776-778)
+                cache=params.get("nocache") not in ("1", "true"))
+        except Exception as e:  # noqa: BLE001 -- the client's wire form
+            if not proto_accept:
+                raise
+            self._proto(req, proto.encode(proto.QUERY_RESPONSE,
+                                          {"err": str(e)}), status=400)
+            return
         if exclude_columns:
             for r in results:
                 if isinstance(r, Row):
                     r.exclude_columns = True
-        resp = {"results": [serialize_result(r) for r in results]}
         # ?columnAttrs=true, or Options(columnAttrs=true) around a Row:
-        # the reference adds the result columns' attribute sets
-        # (pilosa_tpu/server/handler.py:823-845).  The port keeps no
-        # column attributes, so the list is always empty.
-        if params.get("columnAttrs") == "true" or any(
-                isinstance(r, Row) and r.wants_column_attrs for r in results):
-            resp["columnAttrs"] = []
-        # ?partial=1 or X-Pilosa-Partial: the degraded-read meta, always
-        # present on such a request (pilosa_tpu/server/handler.py:
-        # 756-758, 846-853).  One node misses no shard.
-        if (params.get("partial") in ("1", "true")
-                or req.headers.get("X-Pilosa-Partial") in ("1", "true")):
+        # the attribute sets of the result columns, present (maybe
+        # empty) whenever asked for (pilosa_tpu/server/handler.py:
+        # 823-845)
+        want_attr_rows = [r for r in results if isinstance(r, Row)
+                          and (column_attrs or r.wants_column_attrs)]
+        attr_sets = (self._column_attr_sets(path["index"], want_attr_rows)
+                     if column_attrs or want_attr_rows else None)
+        if proto_accept:
+            pb = {"results": [proto.result_to_proto(r) for r in results]}
+            if attr_sets is not None:
+                pb["columnAttrSets"] = [
+                    {"id": a.get("id", 0), "key": a.get("key", ""),
+                     "attrs": proto.attrs_to_proto(a["attrs"])}
+                    for a in attr_sets]
+            self._proto(req, proto.encode(proto.QUERY_RESPONSE, pb))
+            return
+        resp = {"results": [serialize_result(r) for r in results]}
+        if attr_sets is not None:
+            resp["columnAttrs"] = attr_sets
+        if partial:
             resp["missingShards"] = []
             resp["missingFraction"] = 0.0
         self._json(req, resp)
+
+    def _column_attr_sets(self, index: str, rows: list[Row]) -> list[dict]:
+        """The attribute sets of the rows' columns, ascending, each under
+        its key in a keyed index (pilosa_tpu/server/handler.py:884-906)."""
+        idx = self.api.index(index)
+        cols: set[int] = set()
+        for r in rows:
+            cols.update(int(c) for c in r.columns())
+        ordered = sorted(cols)
+        attrs_by_id = idx.column_attrs.attrs_bulk(ordered)
+        keys_by_id = {}
+        if idx.options.keys:
+            keys_by_id = dict(zip(ordered,
+                                  idx.translate_store.translate_ids(ordered)))
+        out = []
+        for col in ordered:
+            attrs = attrs_by_id.get(col)
+            if not attrs:
+                continue
+            entry = {"attrs": attrs}
+            if idx.options.keys:
+                entry["key"] = keys_by_id.get(col) or ""
+            else:
+                entry["id"] = col
+            out.append(entry)
+        return out
 
     @route("GET", "/debug/ragged")
     def handle_debug_ragged(self, req, params, path, body):
@@ -484,45 +542,70 @@ class Handler:
         [...]}: unix seconds or nanoseconds, or ISO-8601 strings, each
         bit written to its time views too; into a field with no time
         quantum they are checked and the standard view written, as in
-        the reference (pilosa_tpu/server/handler.py:960-964)."""
-        _refuse_protobuf(req, body)
-        d = json.loads(body)
+        the reference (pilosa_tpu/server/handler.py:960-964).  Or a
+        protobuf ImportRequest, its timestamps unix nanoseconds, 0 for
+        none (pilosa_tpu/server/handler.py:933-975)."""
+        if "protobuf" in req.headers.get("Content-Type", ""):
+            # large packed id fields stay ndarrays (len(), never truth)
+            d = proto.decode(proto.IMPORT_REQUEST, body, arrays=True)
+            ts = d.get("timestamps")
+            if ts is not None and len(ts):
+                d["timestamps"] = [int(t) or None for t in ts]
+            # empty repeated fields mean unkeyed, like absent JSON keys
+            for k in ("rowKeys", "columnKeys", "timestamps"):
+                v = d.get(k)
+                if v is None or not len(v):
+                    d[k] = None
+        else:
+            d = json.loads(body)
         timestamps = d.get("timestamps")
         if timestamps:
             timestamps = [None if t is None else _parse_ts(t)
                           for t in timestamps]
-        self.api.import_bits(path["index"], path["field"],
-                             d.get("rowIDs") or [], d.get("columnIDs") or [],
-                             timestamps=timestamps,
-                             row_keys=d.get("rowKeys"),
-                             col_keys=d.get("columnKeys"),
-                             clear=params.get("clear") == "true")
-        self._json(req, {})
+        rows_in, cols_in = d.get("rowIDs"), d.get("columnIDs")
+        self.api.import_bits(
+            path["index"], path["field"],
+            rows_in if rows_in is not None and len(rows_in) else [],
+            cols_in if cols_in is not None and len(cols_in) else [],
+            timestamps=timestamps, row_keys=d.get("rowKeys"),
+            col_keys=d.get("columnKeys"),
+            clear=params.get("clear") == "true")
+        self._import_ok(req)
 
     @route("POST", "/index/{index}/field/{field}/import-value")
     def handle_import_value(self, req, params, path, body):
-        """JSON {"columnIDs": [...], "values": [...]}
-        (pilosa_tpu/server/handler.py:976)."""
-        _refuse_protobuf(req, body)
-        d = json.loads(body)
+        """JSON {"columnIDs": [...], "values": [...], "columnKeys": [...]}
+        or a protobuf ImportValueRequest (pilosa_tpu/server/handler.py:
+        976-993)."""
+        if "protobuf" in req.headers.get("Content-Type", ""):
+            d = proto.decode(proto.IMPORT_VALUE_REQUEST, body)
+            if not d.get("columnKeys"):
+                d["columnKeys"] = None
+        else:
+            d = json.loads(body)
         self.api.import_values(path["index"], path["field"],
                                d.get("columnIDs") or [],
                                d.get("values") or [],
                                col_keys=d.get("columnKeys"))
-        self._json(req, {})
+        self._import_ok(req)
 
     @route("POST", "/index/{index}/field/{field}/import-roaring/{shard}")
     def handle_import_roaring(self, req, params, path, body):
-        """Raw roaring bytes for the standard view, or JSON
-        {"views": {name: base64}}."""
-        _refuse_protobuf(req, body)
-        if "json" in req.headers.get("Content-Type", ""):
+        """Raw roaring bytes for the standard view, JSON {"views": {name:
+        base64}}, or a protobuf ImportRoaringRequest (pilosa_tpu/server/
+        handler.py:994-1018)."""
+        ctype = req.headers.get("Content-Type", "")
+        clear = params.get("clear") == "true"
+        if "protobuf" in ctype:
+            d = proto.decode(proto.IMPORT_ROARING_REQUEST, body)
+            views = {v["name"]: v["data"] for v in d["views"]}
+            clear = clear or d["clear"]
+        elif "json" in ctype:
             d = json.loads(body)
             views = {k: base64.b64decode(v)
                      for k, v in (d.get("views") or {}).items()}
         else:
             views = {"": body}
         self.api.import_roaring(path["index"], path["field"],
-                                int(path["shard"]), views,
-                                clear=params.get("clear") == "true")
-        self._json(req, {})
+                                int(path["shard"]), views, clear=clear)
+        self._import_ok(req)

@@ -867,3 +867,122 @@ def test_int_field_on_cuda_launches_k6_k4_and_k1(cuda_device):
             == k4, q
         assert after["count_and"] - before["count_and"] == k1, q
     h.close()
+
+
+@pytest.mark.cuda
+def test_keyed_protobuf_queries_on_cuda_launch_k3_k2_k4_and_k5(
+        cuda_device, bitmap_containers, tmp_path):
+    """A keyed field's rows are bitmap rows of the same index: a keyed
+    protobuf ``Count(Intersect)`` launches K3 coalesced and K2 with
+    ``?nocoalesce=true``, a keyed filtered ``TopN`` K4 and a keyed
+    ``GroupBy`` K5 once per shard, each answer equal to the same query on
+    a CPU server (the kernels' plain versions) and to a numpy oracle."""
+    import json
+    import urllib.request
+
+    from pilosa_tpu_torch import proto
+    from pilosa_tpu_torch.server.server import Server
+
+    rng = np.random.default_rng(35)
+    n_shards = 3
+    keys = [f"k{i}" for i in range(6)]
+    fc = rng.choice(n_shards * SHARD_WIDTH, size=SHARD_WIDTH // 16,
+                    replace=False)
+    kc = rng.choice(n_shards * SHARD_WIDTH, size=SHARD_WIDTH // 4,
+                    replace=False)
+    kr = rng.integers(0, len(keys), size=len(kc))
+    sets = {("f", 1): set(fc.tolist())}
+    for r, c in zip(kr, kc):
+        sets.setdefault(("kf", keys[r]), set()).add(int(c))
+
+    def post(uri, path, body, ctype="application/json", accept=None):
+        r = urllib.request.Request(uri + path, data=body, method="POST")
+        r.add_header("Content-Type", ctype)
+        if accept:
+            r.add_header("Accept", accept)
+        with urllib.request.urlopen(r, timeout=120) as resp:
+            return resp.read()
+
+    def load(srv):
+        post(srv.uri, "/index/i", b"{}")
+        post(srv.uri, "/index/i/field/f", b"{}")
+        post(srv.uri, "/index/i/field/kf", b'{"options": {"keys": true}}')
+        post(srv.uri, "/index/i/field/f/import", proto.encode(
+            proto.IMPORT_REQUEST, {"rowIDs": [1] * len(fc),
+                                   "columnIDs": fc.tolist()}),
+            "application/x-protobuf")
+        post(srv.uri, "/index/i/field/kf/import", proto.encode(
+            proto.IMPORT_REQUEST, {"rowKeys": [keys[r] for r in kr],
+                                   "columnIDs": kc.tolist()}),
+            "application/x-protobuf")
+        for f in srv.holder.index("i").fields.values():
+            f.flush_deltas()
+
+    def pq(srv, pql, flags=""):
+        out = post(srv.uri, "/index/i/query" + flags,
+                   proto.encode(proto.QUERY_REQUEST, {"query": pql}),
+                   "application/x-protobuf", "application/x-protobuf")
+        d = proto.decode(proto.QUERY_RESPONSE, out)
+        assert d["err"] == ""
+        return json.dumps([_plain_result(proto.proto_to_result(r))
+                           for r in d["results"]])
+
+    cases = (
+        ('Count(Intersect(Row(kf="k3"), Row(f=1)))', "?nocache=1",
+         {"vm_counts": 1}),
+        ('Count(Intersect(Row(kf="k3"), Row(f=1)))',
+         "?nocache=1&nocoalesce=true", {"gathered_count_and": 1}),
+        ("TopN(kf, Row(f=1), n=5)", "?nocache=1",
+         {"row_counts_masked": 1}),
+        ("GroupBy(Rows(kf), Rows(f))", "?nocache=1",
+         {"masked_matrix_counts": n_shards}),
+    )
+    plain = {}
+    cpu = Server(str(tmp_path / "cpu"), device="cpu")
+    cpu.open()
+    try:
+        load(cpu)
+        for pql, flags, _ in cases:
+            plain[pql, flags] = pq(cpu, pql, flags)
+    finally:
+        cpu.close()
+    srv = Server(str(tmp_path / "cuda"), device=cuda_device,
+                 coalescer_enabled=True)
+    srv.open()
+    try:
+        load(srv)
+        for pql, flags, launched in cases:
+            k0 = ck.launch_counts()
+            got = pq(srv, pql, flags)
+            k1 = ck.launch_counts()
+            assert {k: k1[k] - k0[k] for k in k1 if k1[k] != k0[k]} == \
+                launched, pql
+            assert got == plain[pql, flags], pql
+        want = len(sets["kf", "k3"] & sets["f", 1])
+        assert json.loads(pq(srv, cases[0][0]))[0] == want
+        # ids follow the keys' first appearance in the import
+        first = {keys[r]: i for i, r in reversed(list(enumerate(kr)))}
+        top = json.loads(pq(srv, "TopN(kf, Row(f=1), n=5)"))[0]
+        assert top == [
+            [k, len(sets["kf", k] & sets["f", 1])] for k in sorted(
+                keys, key=lambda k: (-len(sets["kf", k] & sets["f", 1]),
+                                     first[k]))][:5]
+    finally:
+        srv.close()
+
+
+def _plain_result(r):
+    """A decoded result as JSON-able values: a Row's columns and keys, a
+    TopN's (key or id, count) pairs, a GroupBy's groups."""
+    from pilosa_tpu_torch.models.row import Row
+
+    if isinstance(r, Row):
+        return [r.columns().tolist(), list(r.keys)]
+    if isinstance(r, list):
+        return [_plain_result(x) for x in r]
+    if hasattr(r, "group"):
+        return [[(fr.field, fr.row_id, fr.row_key) for fr in r.group],
+                r.count]
+    if hasattr(r, "count") and hasattr(r, "key"):
+        return [r.key or r.id, r.count]
+    return r

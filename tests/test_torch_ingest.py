@@ -496,6 +496,55 @@ def test_a_warm_matrix_read_sees_a_pending_delta(tmp_path):
         h.close()
 
 
+def test_a_nodelta_not_over_a_bool_row_sees_a_pending_existence_delta(
+        tmp_path):
+    """ROADMAP Queue 3 item 8: under ``?nodelta=1`` a tree with a bool
+    literal reads shard by shard, and its ``Not`` reads the ``_exists``
+    row after a write left a delta pending there.  The port merges before
+    it reads and answers the effective count, held against a numpy
+    oracle (the reference answers from its stale matrix here)."""
+    ts = TServer(str(tmp_path / "t"), device="cpu", coalescer_enabled=True,
+                 ingest_compact_interval=INTERVAL)
+    try:
+        ts.open()
+        for path, body in (("/index/i", b"{}"),
+                           ("/index/i/field/f", b"{}"),
+                           ("/index/i/field/b",
+                            b'{"options": {"type": "bool"}}')):
+            assert _req(ts.uri, path, body)[0] == 200
+        exists = np.zeros(16, dtype=bool)
+        truth = np.zeros(16, dtype=bool)
+        assert _req(ts.uri, "/index/i/field/f/import", json.dumps(
+            {"rowIDs": [1, 1, 1], "columnIDs": [1, 2, 3]}).encode())[0] == 200
+        exists[[1, 2, 3]] = True
+
+        def count(flags: str = "?nodelta=1") -> int:
+            status, body = _req(ts.uri, "/index/i/query" + flags,
+                                b"Count(Not(Row(b=true)))", "text/plain")
+            assert status == 200, body
+            return json.loads(body)["results"][0]
+
+        def pql(q: str) -> None:
+            assert _req(ts.uri, "/index/i/query", q.encode(),
+                        "text/plain")[0] == 200
+
+        pql("Set(1, b=true)")
+        exists[1] = truth[1] = True
+        want = int((exists & ~truth).sum())
+        assert count() == want == 2
+        pql("Set(10, f=1)")
+        exists[10] = True
+        ef = ts.holder.index("i").field("_exists")
+        assert ef.fragment(0).delta_stats() is not None
+        want = int((exists & ~truth).sum())
+        assert want == 3
+        assert count() == want
+        assert count() == want
+        assert count("") == want
+    finally:
+        ts.close()
+
+
 def test_writers_readers_and_the_compactor_race_without_a_lost_bit(
         tmp_path):
     """Four writers set disjoint bits of one row across three shards while

@@ -2,8 +2,8 @@
 each pinned against a JAX server on the same requests:
 
 - ``?columnAttrs=true`` and ``Options(..., columnAttrs=true)`` add
-  ``"columnAttrs": []`` wherever the reference adds it (the port keeps
-  no attributes, and neither server here has any), and
+  ``"columnAttrs": []`` wherever the reference adds it (neither server
+  here has any column attributes), and
   ``Options(..., excludeRowAttrs=true)`` answers as the reference does;
 - a field created with a type string the reference does not know is
   stored and served as the reference serves it: as a set field for
@@ -17,8 +17,10 @@ tests/test_torch_int_field.py.)  And the five of ROADMAP Queue 3:
 - an unknown call, ``Distinct(...)`` and a time range on a field with no
   time quantum get the reference's errors;
 - ``?partial=1`` and ``X-Pilosa-Partial`` add the degraded-read meta;
-- a body sent as protobuf is refused on the query and import routes with
-  the reference's status and message, and writes nothing;
+- a body sent as protobuf that breaks the wire format is refused on the
+  query and import routes with the reference's status and message, and
+  writes nothing (well-formed protobuf bodies are held to the reference
+  in tests/test_torch_proto.py);
 - ``/import`` with timestamps into a field with no time quantum writes
   the standard view after the reference's length check.
 
