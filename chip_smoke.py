@@ -13,8 +13,9 @@ default), and writes that wait in ingest delta planes ([ingest]
 delta-enabled, the server's default) under coalesced, dense and
 per-shard reads, mutex, bool and time fields with the schema and admin
 routes, string keys, attributes and protobuf bodies (the wire surface of
-a stock Pilosa client), and the result cache ([cache] enabled, the
-server's default)
+a stock Pilosa client), admission control and request deadlines
+([admission] enabled, the server's default), and the result cache
+([cache] enabled, the server's default)
 with the calls it keys -- and holds every hand-written kernel against
 its plain PyTorch version on the card.
 
@@ -156,8 +157,25 @@ paths read base rows, as they would once the compactor had run.
    once cold and 5 times warm; every answer equal to the numpy oracle
    built from the phase's keys and bits and every kernel launched
    exactly at its sites; a keyed Count timed in JSON and in protobuf;
-11f. the cache phase (``phase_cache``): the result cache at the server's
-   default (on); steps 5-11e pass ``?nocache=1`` on every query, so that
+11f. the admission phase (``phase_admission``), every query with
+   ``?nocache=1``: the gate at the server's defaults (query 32/128, ingest
+   16/64, internal 16/64); ``X-Pilosa-Deadline: 0`` on the K2/K3 Count is
+   503 with the reference's body and ``Retry-After``, a 20 us budget 503,
+   a malformed header 400, and K2 and K3 launch nothing; the 16 trees
+   from 16 clients for 5 rounds with a 30 s deadline, each answer the
+   oracle's; rounds at the server's coalescer in which 8 members carry
+   half a window's budget and expire before their flush, the 16 live
+   members the oracle's, the expired ones ``DeadlineExceededError``,
+   vm.queries counting the live ones only, and at least one flush
+   holding both; a budget of 1.9 windows through the API, which bypasses
+   the window (K2); a controller with query cap and queue 2 handed to the
+   running handler, 16 clients for 4 rounds, every shed 429/503 with
+   ``Retry-After``, every answer the oracle's, ``/debug/admission``'s
+   totals equal to the responses; host-clock times of the warm coalesced
+   Count and of 16-client rounds with the gate on and off, in turns, and
+   of one uncontended acquire and release;
+11g. the cache phase (``phase_cache``): the result cache at the server's
+   default (on); steps 5-11f pass ``?nocache=1`` on every query, so that
    their repeats launch their kernels.  The 16 coalesced trees twice, the
    second round all hits with no K2, K3, K3-kinds, K4 or K5 launch; a Set
    on f row 1 (a pending delta) and then a compaction each make every
@@ -596,22 +614,26 @@ class Http:
         self.nocache = nocache
 
     def post(self, path: str, body: bytes,
-             ctype: str = "application/json") -> tuple[int, bytes]:
+             ctype: str = "application/json",
+             headers: dict | None = None) -> tuple[int, bytes]:
         req = urllib.request.Request(self.uri + path, data=body,
                                      method="POST")
         req.add_header("Content-Type", ctype)
+        for k, v in (headers or {}).items():
+            req.add_header(k, v)
         try:
             with urllib.request.urlopen(req, timeout=600) as resp:
                 return resp.status, resp.read()
         except urllib.error.HTTPError as e:
             return e.code, e.read()
 
-    def query(self, pql: str, flags: str = "") -> tuple[list, float]:
+    def query(self, pql: str, flags: str = "",
+              headers: dict | None = None) -> tuple[list, float]:
         if self.nocache:
             flags += ("&" if "?" in flags else "?") + "nocache=1"
         t0 = time.perf_counter()
         st, body = self.post("/index/i/query" + flags, pql.encode(),
-                             "text/plain")
+                             "text/plain", headers)
         ms = (time.perf_counter() - t0) * 1e3
         check(st == 200, f"{pql} -> HTTP {st}: {body[:300]!r}")
         return json.loads(body)["results"], ms
@@ -866,10 +888,11 @@ def phase_lone(ck, tape, http: Http, data: dict) -> dict:
             "launches": k["vm_counts"]}
 
 
-def fire_rounds(http: Http, trees: list, wants: list, rounds: int
-                ) -> tuple[list, float]:
+def fire_rounds(http: Http, trees: list, wants: list, rounds: int,
+                headers: dict | None = None) -> tuple[list, float]:
     """``rounds`` rounds of every tree, one barrier-started client thread
-    per tree; (per-request latencies in ms, wall seconds)."""
+    per tree, each request with ``headers``; (per-request latencies in
+    ms, wall seconds)."""
     n = len(trees)
     pqls = [f"Count({tree_pql(t)})" for t in trees]
     bar = threading.Barrier(n)
@@ -880,7 +903,7 @@ def fire_rounds(http: Http, trees: list, wants: list, rounds: int
         try:
             for _ in range(rounds):
                 bar.wait(timeout=600)
-                res, ms = http.query(pqls[i])
+                res, ms = http.query(pqls[i], headers=headers)
                 lat[i].append(ms)
                 check(res == [wants[i]],
                       f"{pqls[i]}: got {res}, oracle {wants[i]}")
@@ -3588,6 +3611,367 @@ def phase_keys(ck, srv, http: Http, roaring, data: dict, cpr: int,
     return out
 
 
+# ------------------------------------------------------------ admission
+
+ADMISSION_RUNS = 10  # warm one-client Counts, admission on and off each
+ADMISSION_ROUNDS = 5  # 16-client rounds in each of the on/off turns
+ADMISSION_TURNS = 2  # on, off, on, off
+ADMISSION_DROP_ROUNDS = 5  # in-window rounds: live and expiring members
+ADMISSION_EXPIRING = 8  # expiring members of each in-window round
+ADMISSION_TIGHT = 10  # tight-budget Counts past the window
+ADMISSION_CAP = 2  # query cap and queue of the overload leg's controller
+ADMISSION_OVERLOAD_ROUNDS = 4  # 16-client rounds past those caps
+ACQUIRE_CALLS = 20_000  # uncontended acquire + release pairs timed
+
+
+def adm_send(http: Http, pql: str, headers: dict, flags: str = "?nocache=1"
+             ) -> tuple[int, str | None, bytes]:
+    """A query with extra headers: (status, Retry-After, body)."""
+    req = urllib.request.Request(http.uri + "/index/i/query" + flags,
+                                 data=pql.encode(), method="POST")
+    req.add_header("Content-Type", "text/plain")
+    for k, v in headers.items():
+        req.add_header(k, v)
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, resp.headers.get("Retry-After"), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Retry-After"), e.read()
+
+
+def adm_doc(http: Http) -> dict:
+    """GET /debug/admission."""
+    with urllib.request.urlopen(http.uri + "/debug/admission",
+                                timeout=600) as resp:
+        return json.loads(resp.read())
+
+
+@contextlib.contextmanager
+def gate(srv, ctrl):
+    """``ctrl`` as the running handler's admission controller, with the
+    thread cap the server's constructor gives it; the server's own
+    controller back on exit."""
+    h = srv.handler
+    was = (srv.admission, h.admission, h.max_threads)
+    srv.admission = h.admission = ctrl
+    h.max_threads = (ctrl.total_capacity() + h.ACCEPT_HEADROOM
+                     if ctrl.enabled else None)
+    try:
+        yield ctrl
+    finally:
+        srv.admission, h.admission, h.max_threads = was
+
+
+def flush_spy(coalescer, expired_error):
+    """Per flush of ``coalescer``: (members, members it dropped as
+    expired), read from the members' futures once the flush resolved
+    them."""
+    seen: list = []
+    real = coalescer._flush
+
+    def spy(bucket):
+        real(bucket)
+        seen.append((len(bucket.items), sum(
+            1 for it in bucket.items
+            if isinstance(it.fut.exception(timeout=0), expired_error))))
+
+    coalescer._flush = spy
+    return seen, real
+
+
+def phase_admission(ck, tape, srv, data: dict, card: dict) -> dict:
+    """Admission control and request deadlines ([admission], on by default)
+    on the served index, every query with ?nocache=1 or cache=False:
+
+    (a) an expired request: ``X-Pilosa-Deadline: 0`` on the K2/K3 Count
+        is 503 with the reference's body and Retry-After, a budget of
+        ``2e-5`` s is 503 too, and a malformed header is 400; K2 and K3
+        launch nothing;
+    (b) coalesced rounds of the 16 trees from 16 clients with a generous
+        deadline, every answer the oracle's, K3 launches equal to
+        vm.executions;
+    (c) in-window rounds, in process at the server's coalescer (a member
+        that passes the executor's bypass has more than two windows left
+        and waits at most one, so over HTTP only a stalled host expires
+        one there): the 16 trees live and ADMISSION_EXPIRING of them with
+        a budget of half a window, started before the barrier, so that it
+        has run out at every flush; every live count the oracle's, every
+        expiring member DeadlineExceededError (the handler's 503), K3
+        launched for the live members only, and at least one flush with
+        live and expired members together;
+    (d) a tight budget (1.9 windows) through the API: the window is
+        bypassed, the Count is K2 and the oracle's;
+    (e) overload: a controller with query cap and queue ADMISSION_CAP
+        handed to the running handler; 16 barrier-started clients for
+        ADMISSION_OVERLOAD_ROUNDS rounds, every shed 429 or 503 with
+        Retry-After, every admitted answer the oracle's, and the
+        controller's /debug/admission totals equal to the responses;
+    (f) host-clock costs: the warm one-client coalesced Count with the
+        gate on and off (a disabled controller, as admission_enabled=False
+        builds), alternating; 16-client rounds on and off, alternating;
+        one uncontended acquire and release.
+
+    Launch counts are zeroed at the start and read at the end."""
+    from pilosa_tpu_torch.pql import parse
+    from pilosa_tpu_torch.serve import deadline as dlmod
+    from pilosa_tpu_torch.serve.admission import AdmissionController
+
+    t_phase = time.perf_counter()
+    http = Http(srv.uri, nocache=True)
+    co = srv.coalescer
+    window = co.window_s
+    out: dict = {"window_ms": window * 1e3}
+    compact_all()  # the phase reads base rows: K2 for a lone Count
+    doc = adm_doc(http)
+    check(doc["enabled"] and srv.admission.enabled,
+          "admission is off by default")
+    check({k: (c["cap"], c["queueDepth"]) for k, c in doc["classes"].items()}
+          == {"query": (32, 128), "ingest": (16, 64), "internal": (16, 64)},
+          f"the gate's caps are not the reference's defaults: {doc}")
+    tree = ("and", ("f", 1), ("f", 2))
+    pql = f"Count({tree_pql(tree)})"
+    want = oracle(tree, data)
+    wants = [oracle(t, data) for t in TREES]
+    idx = srv.holder.index("i")
+    shards = tuple(range(N_SHARDS))
+    ck.reset_launch_counts()
+    tape.reset_counters()
+
+    # (a) expired and malformed deadlines
+    k0, vm0 = ck.launch_counts(), tape.counters()["vm.executions"]
+    st, ra, expired = adm_send(http, pql, {"X-Pilosa-Deadline": "0"})
+    check(st == 503 and ra is not None, f"an expired request: {st} {ra}")
+    ref_body = json.dumps({
+        "error": f"query request expired (admission control; retry after "
+                 f"{ra}s)", "reason": "expired", "class": "query"}).encode()
+    check(expired == ref_body, f"the expired body {expired!r}, the "
+                               f"reference's {ref_body!r}")
+    tiny = [adm_send(http, pql, {"X-Pilosa-Deadline": "2e-5"})[0]
+            for _ in range(5)]
+    check(set(tiny) == {503}, f"a 20 us budget answered {tiny}")
+    st, _ra, body = adm_send(http, pql, {"X-Pilosa-Deadline": "soon"})
+    check(st == 400 and body == json.dumps(
+        {"error": "invalid X-Pilosa-Deadline header: 'soon'"}).encode(),
+        f"a malformed deadline: {st} {body!r}")
+    moved = launched(k0, ck.launch_counts())
+    check(not moved and tape.counters()["vm.executions"] == vm0,
+          f"expired requests launched {moved}")
+    out["expired"] = {"status": 503, "retry_after": ra,
+                      "tiny_budget_statuses": tiny}
+    log(f"admission (a): X-Pilosa-Deadline 0 -> 503 Retry-After {ra}, "
+        f"{expired!r} == the reference's; 2e-5 s x5 -> {tiny}; 'soon' -> 400; "
+        f"K2 and K3 launches unchanged ({k0['gathered_count_and']}, "
+        f"{k0['vm_counts']})")
+
+    # (b) coalesced rounds with a generous deadline, after one round that
+    # stages the compacted rows' leaves again
+    fire_rounds(http, TREES, wants, 1)
+    k0, vm0 = ck.launch_counts(), tape.counters()
+    lat, wall = fire_rounds(http, TREES, wants, ADMISSION_ROUNDS,
+                            headers={"X-Pilosa-Deadline": "30"})
+    vm1, k1 = tape.counters(), ck.launch_counts()
+    execs = vm1["vm.executions"] - vm0["vm.executions"]
+    check(vm1["vm.queries"] - vm0["vm.queries"]
+          == len(TREES) * ADMISSION_ROUNDS, "a deadlined query left the VM")
+    check(k1["vm_counts"] - k0["vm_counts"] == execs > 0,
+          f"K3 {k1['vm_counts'] - k0['vm_counts']} for {execs} executions")
+    out["deadlined_rounds"] = {"queries": len(TREES) * ADMISSION_ROUNDS,
+                               "k3_launches": execs,
+                               "latency_ms": spread(lat),
+                               "qps": len(lat) / wall}
+    log(f"admission (b): {len(TREES)} trees x {ADMISSION_ROUNDS} rounds with "
+        f"X-Pilosa-Deadline 30, every answer exact, {execs} K3 launches; "
+        f"per request {fmt(out['deadlined_rounds']['latency_ms'])}")
+
+    # (c) members expiring in the window, at the coalescer
+    budget = window / 2
+    children = [parse(f"Count({tree_pql(t)})").calls[0].children[0]
+                for t in TREES]
+    dropped_with_live = 0
+    live_q = expired_n = 0
+    k0, vm0 = ck.launch_counts(), tape.counters()
+    seen, real_flush = flush_spy(co, dlmod.DeadlineExceededError)
+    try:
+        for _ in range(ADMISSION_DROP_ROUNDS):
+            n = len(TREES) + ADMISSION_EXPIRING
+            bar = threading.Barrier(n)
+            got: dict = {}
+            errs: list = []
+
+            def member(i):
+                # the budget starts before the barrier: every flush comes
+                # a window after its first member joined, so a budget
+                # under one window has run out by then
+                dl = None if i < len(TREES) else dlmod.Deadline(budget)
+                try:
+                    bar.wait(timeout=600)
+                    c = children[i % len(TREES)]
+                    got[i] = co.count(srv.executor, idx, c, shards,
+                                      deadline=dl)
+                except dlmod.DeadlineExceededError as e:
+                    got[i] = e
+                except Exception as e:  # noqa: BLE001 -- reported below
+                    errs.append(f"{type(e).__name__}: {e}")
+
+            ts = [threading.Thread(target=member, args=(i,))
+                  for i in range(n)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=600)
+            check(not errs and len(got) == n, f"in-window round: {errs}")
+            for i in range(len(TREES)):
+                check(got[i] == wants[i], f"a live member: {got[i]}, "
+                                          f"oracle {wants[i]}")
+            for i in range(len(TREES), n):
+                check(isinstance(got[i], dlmod.DeadlineExceededError),
+                      f"an expiring member answered {got[i]}")
+            live_q += len(TREES)
+            expired_n += ADMISSION_EXPIRING
+    finally:
+        co._flush = real_flush
+    vm1, k1 = tape.counters(), ck.launch_counts()
+    execs = vm1["vm.executions"] - vm0["vm.executions"]
+    dropped_with_live = sum(1 for m, d in seen if 0 < d < m)
+    check(vm1["vm.queries"] - vm0["vm.queries"] == live_q,
+          f"vm.queries {vm1['vm.queries'] - vm0['vm.queries']} for "
+          f"{live_q} live members: an expired member reached the VM")
+    check(k1["vm_counts"] - k0["vm_counts"] == execs > 0,
+          f"K3 {k1['vm_counts'] - k0['vm_counts']} for {execs} executions")
+    check(sum(d for _m, d in seen) == expired_n,
+          f"{sum(d for _m, d in seen)} expired at flush of {expired_n}")
+    check(dropped_with_live > 0, f"no flush held live and expired members "
+                                 f"together: {seen}")
+    out["in_window"] = {"budget_ms": budget * 1e3, "rounds":
+                        ADMISSION_DROP_ROUNDS, "live": live_q,
+                        "expired": expired_n, "flushes": len(seen),
+                        "mixed_flushes": dropped_with_live,
+                        "k3_launches": execs}
+    log(f"admission (c): window {window * 1e3:.3f} ms, expiring budget "
+        f"{budget * 1e3:.3f} ms; {ADMISSION_DROP_ROUNDS} rounds of "
+        f"{len(TREES)} live + {ADMISSION_EXPIRING} expiring members: "
+        f"{len(seen)} flushes, {dropped_with_live} with live and expired "
+        f"members together; every live count exact, every expiring member "
+        f"DeadlineExceededError; vm.queries {live_q} (live only), "
+        f"{execs} K3 launches")
+
+    # (d) a tight budget bypasses the window
+    tight = 1.9 * window
+    k0, vm0 = ck.launch_counts(), tape.counters()["vm.executions"]
+    for _ in range(ADMISSION_TIGHT):
+        with dlmod.scope(dlmod.Deadline(tight)):
+            res = srv.api.query("i", pql, cache=False)
+        check(res == [want], f"tight {pql}: {res}, oracle {want}")
+    k1 = ck.launch_counts()
+    check(k1["gathered_count_and"] - k0["gathered_count_and"]
+          == ADMISSION_TIGHT and tape.counters()["vm.executions"] == vm0
+          and k1["vm_counts"] == k0["vm_counts"],
+          f"tight budgets: {launched(k0, k1)}, not {ADMISSION_TIGHT} K2")
+    with dlmod.scope(dlmod.Deadline(30.0)):
+        res = srv.api.query("i", pql, cache=False)
+    check(res == [want] and tape.counters()["vm.executions"] == vm0 + 1,
+          "a generous budget did not take the window")
+    out["tight"] = {"budget_ms": tight * 1e3, "queries": ADMISSION_TIGHT}
+    log(f"admission (d): budget {tight * 1e3:.3f} ms (< 2 windows) x "
+        f"{ADMISSION_TIGHT} through the API: K2 each, no VM execution; "
+        f"30 s: one VM execution")
+
+    # (e) overload past small caps
+    ctrl = AdmissionController(query_cap=ADMISSION_CAP,
+                               query_queue=ADMISSION_CAP)
+    statuses: list = []
+    k0 = ck.launch_counts()
+    with gate(srv, ctrl):
+        for _ in range(ADMISSION_OVERLOAD_ROUNDS):
+            bar = threading.Barrier(len(TREES))
+            resp: dict = {}
+
+            def client(i):
+                bar.wait(timeout=600)
+                resp[i] = adm_send(http, f"Count({tree_pql(TREES[i])})", {})
+
+            ts = [threading.Thread(target=client, args=(i,))
+                  for i in range(len(TREES))]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=600)
+            check(len(resp) == len(TREES), "an overload client hung")
+            for i, (st, ra, body) in resp.items():
+                statuses.append(st)
+                if st == 200:
+                    check(json.loads(body)["results"] == [wants[i]],
+                          f"an admitted answer differs: {body!r}")
+                else:
+                    check(st in (429, 503) and ra is not None,
+                          f"a shed answered {st} Retry-After {ra}")
+                    check(json.loads(body)["class"] == "query",
+                          f"a shed body {body!r}")
+        doc = adm_doc(http)
+    q = doc["classes"]["query"]
+    ok = statuses.count(200)
+    shed = len(statuses) - ok
+    check(q["admitted"] == ok and q["shed"] + q["expired"] == shed,
+          f"/debug/admission {q} against {ok} answered, {shed} shed")
+    check(shed > 0 and ok > 0, f"overload: {ok} answered, {shed} shed")
+    check(q["inFlight"] == 0 and q["waiting"] == 0, f"slots leaked: {q}")
+    out["overload"] = {"cap": ADMISSION_CAP, "queue": ADMISSION_CAP,
+                       "requests": len(statuses), "answered": ok,
+                       "shed": shed, "by_status": {
+                           s: statuses.count(s) for s in sorted(set(
+                               statuses))},
+                       "launches": launched(k0, ck.launch_counts())}
+    log(f"admission (e): cap {ADMISSION_CAP} queue {ADMISSION_CAP}, "
+        f"{len(TREES)} clients x {ADMISSION_OVERLOAD_ROUNDS}: "
+        f"{out['overload']['by_status']}, every answer exact, every shed "
+        f"with Retry-After; /debug/admission admitted {q['admitted']}, "
+        f"shed {q['shed']}, expired {q['expired']}")
+
+    # (f) host-clock costs, the gate on and off in turns
+    off = AdmissionController(enabled=False)
+    http.query(pql)  # warm
+    lat: dict = {"on": [], "off": []}
+    for _ in range(ADMISSION_RUNS):
+        for mode in ("on", "off"):
+            with gate(srv, srv.admission if mode == "on" else off):
+                res, ms = http.query(pql)
+            check(res == [want], f"{pql}: {res}, oracle {want}")
+            lat[mode].append(ms)
+    qps: dict = {"on": [], "off": []}
+    for _ in range(ADMISSION_TURNS):
+        for mode in ("on", "off"):
+            with gate(srv, srv.admission if mode == "on" else off):
+                ls, wall = fire_rounds(http, TREES, wants, ADMISSION_ROUNDS)
+            qps[mode].append(len(ls) / wall)
+    fresh = AdmissionController()
+    fresh.acquire("query").release()
+    t0 = time.perf_counter()
+    for _ in range(ACQUIRE_CALLS):
+        fresh.acquire("query").release()
+    acq_us = (time.perf_counter() - t0) / ACQUIRE_CALLS * 1e6
+    out["costs"] = {"count_ms": {m: spread(v) for m, v in lat.items()},
+                    "qps_16": qps, "acquire_release_us": acq_us,
+                    "card": card["smi"]}
+    for mode in ("on", "off"):
+        log(f"admission (f) {card['smi']}: {pql} one client, gate {mode}: "
+            f"{fmt(out['costs']['count_ms'][mode])}")
+        log(f"admission (f) {card['smi']}: 16 clients x {ADMISSION_ROUNDS} "
+            f"rounds, gate {mode}: "
+            + ", ".join(f"{x:.1f}" for x in qps[mode]) + " queries/s")
+    log(f"admission (f) {card['smi']}: one uncontended acquire + release "
+        f"{acq_us:.3f} us ({ACQUIRE_CALLS} pairs)")
+    out["launches"] = ck.launch_counts()
+    check(out["launches"]["gathered_count_and"] > 0
+          and out["launches"]["vm_counts"] > 0,
+          f"the phase launched {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"admission phase launches: {out['launches']}; "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------- cache
+
 HIT_KERNELS = ("gathered_count_and", "vm_counts", "vm_counts_kinds",
                "row_counts_masked", "masked_matrix_counts")
 #: Counts that read field g alone: a write to f leaves their stamps
@@ -3848,8 +4232,8 @@ def run_paths(torch, ck, bm, kp, containers, tape, Server, roaring,
               seed: int, card: dict) -> dict:
     """The server on cuda: the K2 path, the lone query, the coalesced
     path, the scan path, the BSI path, the kinds leg, the ingest phase,
-    the field-types phase, the keys phase, the cache phase, then the
-    timings on their own inputs."""
+    the field-types phase, the keys phase, the admission phase, the cache
+    phase, then the timings on their own inputs."""
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
     words = SHARD_WIDTH // 32
@@ -3885,7 +4269,7 @@ def run_paths(torch, ck, bm, kp, containers, tape, Server, roaring,
         # the phases before the cache phase time kernels and count their
         # launches: every query of theirs passes ?nocache=1
         http = Http(srv.uri, nocache=True)
-        log("phases 5-11e: every query with ?nocache=1 (the result cache, "
+        log("phases 5-11f: every query with ?nocache=1 (the result cache, "
             "on by default, would answer their repeats with no launch); "
             "the cache phase runs with the cache")
         check(http.post("/index/i", b'{"options": {"trackExistence": '
@@ -3911,6 +4295,7 @@ def run_paths(torch, ck, bm, kp, containers, tape, Server, roaring,
                                                cpr, words, seed)
         out["keys"] = phase_keys(ck, srv, http, roaring, data, cpr, words,
                                  seed)
+        out["admission"] = phase_admission(ck, tape, srv, data, card)
         out["cache"] = phase_cache(ck, srv, data, card)
         out["k3"] = phase_k3_time(torch, ck, tape,
                                   out["coalesced"].pop("flush"), card)
@@ -4029,6 +4414,7 @@ def main(argv: list[str] | None = None) -> int:
                     "ingest": out["ingest"],
                     "field_types": out["field_types"],
                     "keys": out["keys"],
+                    "admission": out["admission"],
                     "cache": out["cache"],
                     "k3_kinds_us": out["k3k"]["spread_us"],
                     "k3_kinds_shape": out["k3k"]["shape"],
@@ -4049,8 +4435,10 @@ def main(argv: list[str] | None = None) -> int:
                             ("vm_counts_kinds_dfuse", "k3k_fixed_dfuse",
                              ("all_slots_bound_ms", "host_plan_us")))}}))
     # every kernel's launches on its own paths, plus the field-types
-    # phase's, the keys phase's and the cache phase's misses
+    # phase's, the keys phase's, the admission phase's and the cache
+    # phase's misses
     cache_k = out["cache"]["launches"]
+    adm_k = out["admission"]["launches"]
     ft_k = out["field_types"]["launches"]
     keys_k = out["keys"]["launches"]
     log(json.dumps({"kernels": [
@@ -4060,6 +4448,7 @@ def main(argv: list[str] | None = None) -> int:
                     out["launches"]["gathered_count_and"]
                     + ft_k["gathered_count_and"]
                     + keys_k["gathered_count_and"]
+                    + adm_k["gathered_count_and"]
                     + cache_k["gathered_count_and"],
                     max(k2_err, out["k2"]["max_abs_err"]), out["k2"]),
         # K3 and K3-kinds: launches on their own paths plus the ingest
@@ -4069,7 +4458,7 @@ def main(argv: list[str] | None = None) -> int:
                     out["coalesced"]["k3_launches"]
                     + out["ingest"]["k3"]["launches"]
                     + ft_k["vm_counts"] + keys_k["vm_counts"]
-                    + cache_k["vm_counts"],
+                    + adm_k["vm_counts"] + cache_k["vm_counts"],
                     max(k3_err, out["k3"]["max_abs_err"],
                         out["k3_fixed"]["max_abs_err"],
                         out["k3_fixed16"]["max_abs_err"],

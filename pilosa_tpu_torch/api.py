@@ -27,6 +27,7 @@ from pilosa_tpu_torch.models.index import IndexOptions
 from pilosa_tpu_torch.models.view import VIEW_BSI_PREFIX, VIEW_STANDARD
 from pilosa_tpu_torch.parallel.executor import ExecOptions
 from pilosa_tpu_torch.runtime import resultcache
+from pilosa_tpu_torch.serve import deadline as _deadline
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
 
@@ -54,13 +55,23 @@ class API:
               coalesce: bool = True, vm: bool = True,
               delta: bool = True, cache: bool = True,
               column_attrs: bool = False,
-              exclude_row_attrs: bool = False) -> list:
+              exclude_row_attrs: bool = False,
+              tenant: str | None = None) -> list:
+        """Execute PQL -> results.  The deadline is the one the handler
+        installed on this thread (``serve.deadline.scope``): an expired
+        one raises here, before translation touches anything
+        (pilosa_tpu/api.py:119-126), and the executor checks it again at
+        its stage boundaries.  ``tenant`` is the request's tenant id
+        (``X-Pilosa-Tenant``), inert with [tenants] off."""
+        dl = _deadline.current()
+        _deadline.check(dl, "query execution")
         opt = ExecOptions(exclude_columns=exclude_columns,
                           column_attrs=column_attrs,
                           exclude_row_attrs=exclude_row_attrs,
                           shards=None if shards is None else list(shards),
                           coalesce=coalesce, containers=containers, vm=vm,
-                          delta=delta, cache=cache)
+                          delta=delta, cache=cache, deadline=dl,
+                          tenant=tenant)
         return self.executor.execute(index, pql, opt=opt)
 
     # ------------------------------------------------------------- schema

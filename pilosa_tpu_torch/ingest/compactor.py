@@ -13,10 +13,15 @@ Lock order is fragment -> compactor everywhere: ``note_delta`` and
 inside; the scan snapshots the registry, releases it, then calls
 ``flush_delta``.
 
+Each scan of the thread runs under one ``internal`` ticket of the
+server's admission controller (``Compactor.admission``, set by the
+server assembly), so that compaction yields to query pressure: a scan
+the gate sheds is skipped (``compact_skipped``) and the next interval
+retries, the deltas still pending (pilosa_tpu/ingest/compactor.py:
+212-231).  With no controller, or one disabled, the scan just runs.
+
 Left out, with the port's lack of the layers they hook into: the
-admission controller's ``internal`` ticket around each scan (the port
-takes the reference's path for ``admission is None``: the scan just
-runs), the ``compactor.merge`` failpoint (no ``faultinject``), the
+``compactor.merge`` failpoint (no ``faultinject``), the
 ``compaction.run`` journal event and ``publish_gauges`` (no ``observe``
 nor stats registry).  ``GET /debug/ingest`` serves ``debug()``.
 """
@@ -27,6 +32,8 @@ import threading
 import weakref
 
 from pilosa_tpu_torch import ingest as _ingest
+from pilosa_tpu_torch.serve.admission import ShedError
+from pilosa_tpu_torch.serve.deadline import Deadline
 
 
 class Compactor:
@@ -45,6 +52,7 @@ class Compactor:
         self.inline_flushes = 0
         self.compact_skipped = 0
         self.delta_writes = 0
+        self.admission = None  # serve.admission.AdmissionController
 
     # -------------------------------------------------- fragment callbacks
 
@@ -158,9 +166,28 @@ class Compactor:
         stop = self._stop
         while not stop.wait(_ingest.config().compact_interval):
             try:
-                self.run_once()
+                self._run_gated()
             except Exception:  # noqa: BLE001 -- the scan must not die;
                 pass  # the next interval retries (the WAL holds the bits)
+
+    def _run_gated(self) -> None:
+        """One scan under the internal admission class; a shed scan is
+        skipped and the next interval retries."""
+        adm = self.admission
+        if adm is None or not adm.enabled:
+            self.run_once()
+            return
+        try:
+            ticket = adm.acquire(
+                "internal", Deadline(_ingest.config().compact_interval))
+        except ShedError:
+            with self._lock:
+                self.compact_skipped += 1
+            return
+        try:
+            self.run_once()
+        finally:
+            ticket.release()
 
     # -------------------------------------------------------------- views
 

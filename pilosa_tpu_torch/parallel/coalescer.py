@@ -26,10 +26,18 @@ tried in the reference's order (VM, lone, same shape, tape).
 
 Every member of a flushed batch fills its own result-cache key with the
 stamp the executor took before staging (``cache_fill``), so a Count
-that K3 or K3-kinds answered fills the key the direct path probes.
+that K3 or K3-kinds answered fills the key the direct path probes; with
+[tenants] on, each fill charges the member's own tenant.
 
-Not part of the port yet: deadlines, the flight recorder, stats,
-tracing, tenants, the residency OOM retry and the mesh.
+Deadlines (pilosa_tpu/parallel/coalescer.py:189-198, 383-410): a query
+whose remaining budget is at most two windows bypasses the window
+(``eligible``), and at flush the entries whose deadline expired in the
+window are dropped before any launch.  Their futures raise
+``DeadlineExceededError``; their batchmates launch without them and get
+their own counts.
+
+Not part of the port yet: the flight recorder, stats, tracing, the
+residency OOM retry and the mesh.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import torch
 from pilosa_tpu_torch.ops import containers as _containers
 from pilosa_tpu_torch.ops import expr
 from pilosa_tpu_torch.ops import tape as _tape
+from pilosa_tpu_torch.serve.deadline import DeadlineExceededError
 
 
 def resolve_enabled(mode, device: str | torch.device | None) -> bool:
@@ -75,15 +84,17 @@ class _Bucket:
 class _Entry:
     """One staged query waiting in a bucket.  ``tape`` is None on the
     per-shape path; ``vm`` is the query's VMStage when the bitmap VM
-    routes it (such entries carry no dense leaves)."""
+    routes it (such entries carry no dense leaves); ``deadline`` is the
+    query's, or None."""
 
-    __slots__ = ("shape", "leaves", "tape", "fut", "vm")
+    __slots__ = ("shape", "leaves", "tape", "fut", "deadline", "vm")
 
-    def __init__(self, shape, leaves, tape, fut, vm=None):
+    def __init__(self, shape, leaves, tape, fut, deadline, vm=None):
         self.shape = shape
         self.leaves = leaves
         self.tape = tape
         self.fut = fut
+        self.deadline = deadline
         self.vm = vm
 
 
@@ -120,8 +131,13 @@ class Coalescer:
 
     def eligible(self, opt) -> bool:
         """Gate of the executor's fused Count path; the caller has
-        already established fusion eligibility."""
-        return self.enabled and (opt is None or opt.coalesce)
+        already established fusion eligibility.  A query whose remaining
+        deadline is within two windows bypasses the window: it is never
+        held past its budget to share a launch."""
+        if not (self.enabled and (opt is None or opt.coalesce)):
+            return False
+        dl = None if opt is None else opt.deadline
+        return dl is None or dl.remaining() > 2 * self.window_s
 
     def _tape_for(self, shape, n_leaves):
         """Memoized compile: a Tape within the caps, or None (with the
@@ -159,14 +175,16 @@ class Coalescer:
 
     def count(self, executor, idx, child, shards: tuple[int, ...],
               use_delta: bool = True, use_vm: bool = True,
-              cache_fill=None) -> int:
+              cache_fill=None, deadline=None,
+              tenant: str | None = None) -> int:
         """One Count(tree) through the batching window -> total.
         Staging runs on the caller's thread, so a staging error belongs
         to this query alone.  ``cache_fill`` is the executor's result-
         cache probe ``(cache, key, stamp)`` for this query, filled with
-        the total once the batch resolves; a member whose batch failed
-        raises from its future and fills nothing (pilosa_tpu/parallel/
-        coalescer.py:250-256, 369-371).  ``use_delta=False``
+        the total once the batch resolves, charged to ``tenant``; a
+        member whose batch failed, or whose ``deadline`` expired in the
+        window, raises from its future and fills nothing (pilosa_tpu/
+        parallel/coalescer.py:250-256, 369-371).  ``use_delta=False``
         (``?nodelta=1``) goes to staging.  Bucket keys need nothing more
         for deltas: a pending overlay puts ``dfuse`` nodes in the staged
         shape, which the tape compiler lowers to two more instructions,
@@ -186,12 +204,12 @@ class Coalescer:
                                       len(vmstage.leaves))
             key = ("vm", tb, lb)
             entry = _Entry(vmstage.shape, (), vmstage.tape, Future(),
-                           vm=vmstage)
+                           deadline, vm=vmstage)
         else:
             shape, leaves = executor._fused_expr(idx, child, shards,
                                                  use_delta)
             key, tp = self._bucket_key(idx, shape, shards, leaves)
-            entry = _Entry(shape, leaves, tp, Future())
+            entry = _Entry(shape, leaves, tp, Future(), deadline)
         with self._lock:
             bucket = self._pending.get(key)
             leader = bucket is None
@@ -219,17 +237,28 @@ class Coalescer:
             total = int(arr[:len(shards)].sum())
         if cache_fill is not None:
             rc, key, gens = cache_fill
-            rc.put(key, gens, total, 32)
+            rc.put(key, gens, total, 32, tenant=tenant)
         return total
 
     # ------------------------------------------------------------- flush
 
     def _flush(self, bucket: _Bucket) -> None:
         """Leader side: run the sealed bucket and resolve every waiter's
-        future.  Everything runs inside the try, so that any failure
-        resolves every future and no follower blocks forever."""
-        live = bucket.items
+        future.  The entries whose deadline expired in the window leave
+        the batch before any launch; everything after runs inside the
+        try, so that any failure resolves every future and no follower
+        blocks forever."""
+        live: list[_Entry] = []
+        for it in bucket.items:
+            dl = it.deadline
+            if dl is not None and dl.expired():
+                it.fut.set_exception(DeadlineExceededError(
+                    "deadline expired in the coalescer window"))
+            else:
+                live.append(it)
         n = len(live)
+        if n == 0:
+            return
         try:
             shape_groups: dict = {}
             for it in live:

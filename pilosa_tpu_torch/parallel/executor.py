@@ -69,10 +69,23 @@ read.  A Count probes before the coalescer, so a hit never takes a
 batch slot, and the coalescer fills each member's key.  Whole-matrix
 reads (TopN, GroupBy) merge their fields' deltas before stamping.
 ``?nocache=1`` (``ExecOptions.cache``) and ``?nodelta=1`` skip the
-probe.  Left out with the flight recorder: ``_rc_mark_hit`` and the
-``cacheKey`` stamp; with deadlines: ``_rc_wait`` (a miss waits on an
-open flight for ``resultcache.FLIGHT_WAIT_S``); with the cluster: the
+probe.  A miss waits on an open flight for at most
+``resultcache.FLIGHT_WAIT_S`` and never past the query's remaining
+deadline (``_rc_wait``).  Left out with the flight recorder:
+``_rc_mark_hit`` and the ``cacheKey`` stamp; with the cluster: the
 ``count_shards`` probe and ``_rc_fill_ok`` (no partial results).
+
+Deadlines and tenants (serve/; executor.py:117-140, 345-369, 538-600):
+``ExecOptions.deadline`` (the request's ``X-Pilosa-Deadline``) is checked
+before translation, before each call's map (``map``), before each shard
+of a per-shard map (``map of shard N``) and before the reduce, so that an
+expired query never reaches a kernel launch; the coalescer drops an
+entry that expires in its window.  ``ExecOptions.tenant`` is installed
+as the thread's tenant scope for the execution, which the result cache
+charges with [tenants] on.  The shards of one node map on the calling
+thread, where both scopes already hold; the reference's hand-off of the
+deadline to its remote-query threads (executor.py:515-525) waits for the
+cluster.
 
 Mutex, bool and time fields (executor.py:1038-1094, 1636-1655,
 2050-2080, 2620, 2815-2866): a bool field's ``true``/``false`` literal
@@ -130,6 +143,9 @@ from pilosa_tpu_torch.parallel.results import (FieldRow, GroupCount, Pair,
                                                ValCount, sort_pairs)
 from pilosa_tpu_torch.pql import Call, Query, parse
 from pilosa_tpu_torch.runtime import resultcache
+from pilosa_tpu_torch.serve import deadline as _deadline
+from pilosa_tpu_torch.serve import tenant as _tenantmod
+from pilosa_tpu_torch.serve.deadline import DeadlineExceededError
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
 _SET_OPS = {"Union": "or", "Intersect": "and", "Difference": "andnot",
@@ -164,6 +180,13 @@ class ExecOptions:
     exclude_row_attrs: bool = False
     # ?columnAttrs=true: Row results ask for their columns' attributes
     column_attrs: bool = False
+    # the request's end-to-end deadline (serve/deadline.Deadline, from
+    # X-Pilosa-Deadline): checked at translate, map, each shard and
+    # reduce, so that expired work never reaches a launch
+    deadline: object | None = None
+    # the request's tenant id (X-Pilosa-Tenant / ?tenant=): the thread's
+    # tenant scope during the execution; inert with [tenants] off
+    tenant: str | None = None
 
 
 class ExecutionError(ValueError):
@@ -210,12 +233,15 @@ class Executor:
         idx = self.holder.index(index_name)
         if idx is None:
             raise ExecutionError(f"index not found: {index_name}")
-        # keys translate once, before any call runs (executor.py:371-375)
-        calls = [self._translate_call(idx, c) for c in query.calls]
-        results = [self._execute_call(idx, call, shards, opt)
-                   for call in calls]
-        return [self._translate_result(idx, call, res)
-                for call, res in zip(calls, results)]
+        with _tenantmod.scope(opt.tenant):
+            _deadline.check(opt.deadline, "translate")
+            # keys translate once, before any call runs
+            # (executor.py:371-375)
+            calls = [self._translate_call(idx, c) for c in query.calls]
+            results = [self._execute_call(idx, call, shards, opt)
+                       for call in calls]
+            return [self._translate_result(idx, call, res)
+                    for call, res in zip(calls, results)]
 
     # ----------------------------------------------------------- dispatch
 
@@ -566,11 +592,31 @@ class Executor:
         return rc, key, tuple(gens_out.values())
 
     @staticmethod
-    def _local_map(fn, shards) -> list:
-        """``fn`` over this node's shards, in order, on the calling
-        thread (the reference's worker pool, executor.py:538, maps the
-        same function)."""
-        return [fn(s) for s in shards]
+    def _rc_wait(opt: ExecOptions) -> float:
+        """How long a cache probe may wait on another reader's open fill:
+        ``FLIGHT_WAIT_S``, never past the query's remaining deadline
+        (executor.py:1392-1402)."""
+        dl = opt.deadline
+        if dl is None:
+            return resultcache.FLIGHT_WAIT_S
+        return max(0.0, min(resultcache.FLIGHT_WAIT_S, dl.remaining()))
+
+    @staticmethod
+    def _local_map(fn, shards, opt: ExecOptions) -> list:
+        """``fn`` over this node's shards, in order, on the calling thread
+        (the reference's worker pool maps the same function), between the
+        deadline checks of its ``_map_shards``: before the map, before
+        each shard and before the reduce (executor.py:538-600)."""
+        dl = opt.deadline
+        _deadline.check(dl, "map")
+        out = []
+        for s in shards:
+            if dl is not None and dl.expired():
+                raise DeadlineExceededError(
+                    f"deadline expired before map of shard {s}")
+            out.append(fn(s))
+        _deadline.check(dl, "reduce")
+        return out
 
     # ----------------------------------------------------- bitmap queries
 
@@ -589,15 +635,16 @@ class Executor:
         shards = self._target_shards(idx, shards, opt)
         row = Row()
         if self._fuse_eligible(idx, shards, call):
+            _deadline.check(opt.deadline, "map")
             partials = self._fused_row_words(idx, call, tuple(shards), opt)
         else:
-            partials = []
-            for s in shards:
+            def map_fn(s):
                 w = self._bitmap_words_shard(idx, call, s, opt.delta)
-                if w is not None:
-                    partials.append((s, bm.to_numpy(w).copy()))
+                return s, None if w is None else bm.to_numpy(w).copy()
+
+            partials = self._local_map(map_fn, shards, opt)
         for shard, words in partials:
-            if words.any():
+            if words is not None and words.any():
                 row.segments[shard] = words
         # a plain Row carries its row's attributes (executor.py:1486-1495)
         if (call.name == "Row" and not opt.exclude_row_attrs
@@ -622,7 +669,7 @@ class Executor:
         probe = self._rc_probe(idx, "row", g, opt, tree=call)
         if probe is not None:
             rc, key, gens = probe
-            hit, val = rc.get(key, gens)
+            hit, val = rc.get(key, gens, self._rc_wait(opt))
             if hit:
                 return [(s, w.copy()) for s, w in val]
         plan = containers.plan_fused(idx, call, g, opt, counts=False)
@@ -760,21 +807,24 @@ class Executor:
         child = call.children[0]
         if self._fuse_eligible(idx, shards, child):
             g = tuple(shards)
+            _deadline.check(opt.deadline, "map")
             # the result-cache probe BEFORE the coalescer: a hit answers
             # before the window and never takes a batch slot
             probe = self._rc_probe(idx, "count", g, opt, tree=child)
             if probe is not None:
                 rc, key, gens = probe
-                hit, val = rc.get(key, gens)
+                hit, val = rc.get(key, gens, self._rc_wait(opt))
                 if hit:
                     return val
             if self.coalescer is not None and self.coalescer.eligible(opt):
-                # the coalescer fills the cache for every flushed member;
-                # ?nocontainers disables the VM too: it executes over
-                # compressed pools
+                # the coalescer drops this entry if its deadline dies in
+                # the window and fills the cache for every flushed
+                # member; ?nocontainers disables the VM too: it executes
+                # over compressed pools
                 return self.coalescer.count(
                     self, idx, child, g, use_delta=opt.delta,
-                    use_vm=opt.vm and opt.containers, cache_fill=probe)
+                    use_vm=opt.vm and opt.containers, cache_fill=probe,
+                    deadline=opt.deadline, tenant=opt.tenant)
             plan = containers.plan_fused(idx, child, g, opt)
             if plan is not None:
                 total = sum(plan.counts())
@@ -787,12 +837,11 @@ class Executor:
             if probe is not None:
                 rc.put(key, gens, total, 32)
             return total
-        total = 0
-        for s in shards:
+        def map_fn(s):
             words = self._bitmap_words_shard(idx, child, s, opt.delta)
-            if words is not None:
-                total += bm.popcount(words)
-        return total
+            return 0 if words is None else bm.popcount(words)
+
+        return sum(self._local_map(map_fn, shards, opt))
 
     # --------------------------------------------------------------- TopN
 
@@ -853,10 +902,11 @@ class Executor:
 
         fused_ok = self._fuse_eligible(idx, shards, filter_call)
         if fused_ok:
+            _deadline.check(opt.deadline, "map")
             parts = [self._fused_topn_counts(idx, f, filter_call,
                                              tuple(shards), opt)]
         else:
-            parts = self._local_map(map_fn, shards)
+            parts = self._local_map(map_fn, shards, opt)
         totals: dict[int, int] = {}
         for part in parts:
             for r, c in part.items():
@@ -920,7 +970,7 @@ class Executor:
                                gen_fields=((f, VIEW_STANDARD),))
         if probe is not None:
             rc, key, gens = probe
-            hit, val = rc.get(key, gens)
+            hit, val = rc.get(key, gens, self._rc_wait(opt))
             if hit:
                 return dict(val)
         totals = self._fused_topn_counts_uncached(idx, f, filter_call,
@@ -1062,7 +1112,7 @@ class Executor:
             return push_down(sorted(set().union(
                 *(frag.row_ids() for frag in frags))))
 
-        parts = self._local_map(map_fn, shards)
+        parts = self._local_map(map_fn, shards, opt)
         # bounded k-way merge of the sorted per-shard lists, deduplicated,
         # stopping at ``limit``
         out: list[int] = []
@@ -1098,7 +1148,7 @@ class Executor:
                                           tuple(shards), opt)
         if probe is not None:
             rc, ckey, cgens = probe
-            hit, val = rc.get(ckey, cgens)
+            hit, val = rc.get(ckey, cgens, self._rc_wait(opt))
             if hit:
                 return self._copy_group_counts(val)
         child_fields = []
@@ -1196,7 +1246,7 @@ class Executor:
             return {}
 
         totals: dict[tuple, int] = {}
-        for part in self._local_map(map_fn, shards):
+        for part in self._local_map(map_fn, shards, opt):
             for key, c in part.items():
                 if any(allowed is not None and key[i][1] not in allowed
                        for i, allowed in enumerate(child_allowed)):
@@ -1305,7 +1355,7 @@ class Executor:
             return Pair()
 
         out = Pair()
-        for p in self._local_map(map_fn, shards):
+        for p in self._local_map(map_fn, shards, opt):
             if p.count == 0:
                 continue
             if out.count == 0:
@@ -1337,6 +1387,7 @@ class Executor:
         shards = self._target_shards(idx, shards, opt)
         if f.options.type == FieldType.INT and self._fuse_eligible(
                 idx, shards, call.children[0] if call.children else None):
+            _deadline.check(opt.deadline, "map")
             if call.name == "Sum":
                 return self._fused_sum(idx, f, call, tuple(shards),
                                        opt.delta)
@@ -1346,14 +1397,20 @@ class Executor:
         filter_row = self._local_filter_row(idx, call, shards, opt)
         out = ValCount()
         if call.name == "Sum":
-            for shard in shards:
+            def sum_fn(shard):
                 s, c = f.sum(filter_row, shard)
-                out = out.add(ValCount(s, c))
+                return ValCount(s, c)
+
+            for vc in self._local_map(sum_fn, shards, opt):
+                out = out.add(vc)
             return out
         reducer = "smaller" if call.name == "Min" else "larger"
-        for shard in shards:
+
+        def extreme_fn(shard):
             r = (f.min if call.name == "Min" else f.max)(filter_row, shard)
-            vc = ValCount() if r is None else ValCount(r[0], r[1])
+            return ValCount() if r is None else ValCount(r[0], r[1])
+
+        for vc in self._local_map(extreme_fn, shards, opt):
             out = getattr(out, reducer)(vc)
         return out
 

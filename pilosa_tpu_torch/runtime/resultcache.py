@@ -26,15 +26,23 @@ itself; a different stamp never joins an older flight.
 Results live on the host: Count totals, TopN row-count dicts, GroupBy
 results and Row word copies, charged against this cache's own budget.
 
+Per-tenant soft budgets (serve/tenant.py; reference :60-68, 224-289):
+with [tenants] enabled every entry is charged to the tenant that filled
+it (an explicit id, or the executor's thread-local tenant scope), and
+while a tenant holds more than its ``cache_share`` of the budget,
+eviction takes that tenant's own oldest entries before the global LRU
+order, so that one tenant churning distinct keys evicts its own
+entries (``tenantPrefEvictions``).  With [tenants] off no entry carries a
+tenant, the LRU is one global order and ``tenantPrefEvictions`` stays 0.
+``tenant_stats`` is the cache's half of ``GET /debug/tenants``.
+
 Left out, with the port's lack of the layers they hook into: the
 ``lockcheck`` lock registry (the cache takes a plain ``threading.Lock``),
-the ``resultcache.fill`` failpoint (no ``faultinject``), the per-tenant
-soft budgets of ``serve.tenant`` (the port takes the reference's path
-with ``[tenants]`` off: every entry anonymous, one global LRU; the
-``tenantPrefEvictions`` counter stays 0), ``invalidate_shard`` (the
-rebalance cutover hook; no cluster; the port's ``invalidate_index`` drops
-a deleted index's or field's entries instead) and ``publish_gauges`` (no stats
-registry).  ``GET /debug/resultcache`` serves ``debug()``.
+the ``resultcache.fill`` failpoint (no ``faultinject``),
+``invalidate_shard`` (the rebalance cutover hook; no cluster; the port's
+``invalidate_index`` drops a deleted index's or field's entries instead)
+and ``publish_gauges`` (no stats registry).  ``GET /debug/resultcache``
+serves ``debug()``.
 
 The ``[cache]`` knobs are process-wide, as in the reference: ``retain``
 takes a server reference (the first snapshots the knobs in force) and
@@ -48,6 +56,8 @@ import hashlib
 import threading
 import time
 from typing import Any
+
+from pilosa_tpu_torch.serve import tenant as _tenant
 
 #: Defaults; the server assembly reconfigures from its [cache] knobs.
 DEFAULT_BUDGET_BYTES = 128 << 20
@@ -91,14 +101,16 @@ class Key:
 
 
 class _Entry:
-    __slots__ = ("gens", "value", "nbytes", "t", "hits")
+    __slots__ = ("gens", "value", "nbytes", "t", "hits", "tenant")
 
-    def __init__(self, gens: Any, value: object, nbytes: int) -> None:
+    def __init__(self, gens: Any, value: object, nbytes: int,
+                 tenant: str | None = None) -> None:
         self.gens = gens
         self.value = value
         self.nbytes = nbytes
         self.t = time.monotonic()
         self.hits = 0
+        self.tenant = tenant
 
 
 class _Flight:
@@ -147,12 +159,78 @@ class ResultCache:
         self.skipped_oversize = 0
         self.flight_joins = 0
         self.flight_served = 0
-        self.tenant_pref_evictions = 0  # no tenants: always 0
+        # per-tenant accounting, touched only while [tenants] is on:
+        # tenant -> live bytes; tenant -> its keys in LRU order; tenant ->
+        # [hits, misses, fills, evictions]
+        self._tenant_bytes: dict[str, int] = {}
+        self._tenant_lru: dict[str, dict] = {}
+        self._tenant_counters: dict[str, list] = {}
+        self.tenant_pref_evictions = 0  # over-budget tenants' victims
+
+    # ------------------------------------------------- tenant helpers
+
+    @staticmethod
+    def _caller_tenant(tenant: str | None) -> str | None:
+        """The tenant an access charges: an explicit id or the thread's
+        tenant scope, through the individuation bound; None (no
+        accounting at all) while [tenants] is off."""
+        if not _tenant.enabled():
+            return None
+        return _tenant.resolve(tenant if tenant is not None
+                               else _tenant.current())
+
+    def _tc_locked(self, t: str) -> list:
+        c = self._tenant_counters.get(t)
+        if c is None:
+            c = self._tenant_counters[t] = [0, 0, 0, 0]
+        return c
+
+    def _tenant_track_locked(self, key: Any, e: _Entry) -> None:
+        if e.tenant is None:
+            return
+        self._tenant_bytes[e.tenant] = \
+            self._tenant_bytes.get(e.tenant, 0) + e.nbytes
+        self._tenant_lru.setdefault(e.tenant, {})[key] = None
+
+    def _tenant_untrack_locked(self, key: Any, e: _Entry) -> None:
+        if e.tenant is None:
+            return
+        self._tenant_bytes[e.tenant] = \
+            self._tenant_bytes.get(e.tenant, 0) - e.nbytes
+        lru = self._tenant_lru.get(e.tenant)
+        if lru is not None:
+            lru.pop(key, None)
+
+    def _tenant_touch_locked(self, key: Any, e: _Entry) -> None:
+        if e.tenant is None:
+            return
+        lru = self._tenant_lru.get(e.tenant)
+        if lru is not None and key in lru:
+            lru[key] = lru.pop(key)
+
+    def _victim_key_locked(self, protect: Any) -> Any:
+        """The next eviction victim: the oldest entry of a tenant over
+        its soft budget, else the global LRU head; never ``protect``,
+        the entry being inserted."""
+        pol = _tenant.policy()
+        if pol is not None and self._tenant_bytes:
+            for t, b in self._tenant_bytes.items():
+                if b <= int(self.budget * pol.quota_for(t).cache_share):
+                    continue
+                for k in self._tenant_lru.get(t, ()):
+                    if k != protect:
+                        self.tenant_pref_evictions += 1
+                        return k
+        for k in self._entries:
+            if k != protect:
+                return k
+        return None
 
     # -------------------------------------------------------- access
 
     def get(self, key: Any, gens: Any,
-            wait_s: float = FLIGHT_WAIT_S) -> tuple[bool, object]:
+            wait_s: float = FLIGHT_WAIT_S,
+            tenant: str | None = None) -> tuple[bool, object]:
         """(hit, value) for the CURRENT stamp ``gens``.  A miss with no
         open same-stamp flight opens one (the caller leads and is
         expected to ``put``); a miss while one is open waits up to
@@ -160,6 +238,7 @@ class ResultCache:
         never waits."""
         if not self.enabled:
             return False, None
+        t = self._caller_tenant(tenant)
         budget = wait_s
         while True:
             with self._lock:
@@ -169,16 +248,22 @@ class ResultCache:
                             self.ttl_s > 0
                             and time.monotonic() - e.t > self.ttl_s):
                         self._entries[key] = self._entries.pop(key)
+                        self._tenant_touch_locked(key, e)
                         e.hits += 1
                         self.hits += 1
+                        if t is not None:
+                            self._tc_locked(t)[0] += 1
                         return True, e.value
                     del self._entries[key]
                     self.bytes -= e.nbytes
+                    self._tenant_untrack_locked(key, e)
                     self.invalidations += 1
                 if key in self._noflight:
                     # the last fill of this key was refused (oversize):
                     # waiting could never turn into a hit
                     self.misses += 1
+                    if t is not None:
+                        self._tc_locked(t)[1] += 1
                     return False, None
                 fl = self._flights.get(key)
                 now = time.monotonic()
@@ -198,9 +283,13 @@ class ResultCache:
                                 self._flights.pop(k).event.set()
                         self._flights[key] = _Flight(gens)
                     self.misses += 1
+                    if t is not None:
+                        self._tc_locked(t)[1] += 1
                     return False, None
                 if budget <= 0:
                     self.misses += 1
+                    if t is not None:
+                        self._tc_locked(t)[1] += 1
                     return False, None
                 self.flight_joins += 1
                 remaining = min(budget, FLIGHT_TTL_S - (now - fl.t0))
@@ -212,21 +301,26 @@ class ResultCache:
                     e = self._entries.get(key)
                     if e is not None and e.gens == gens:
                         self._entries[key] = self._entries.pop(key)
+                        self._tenant_touch_locked(key, e)
                         e.hits += 1
                         self.hits += 1
+                        if t is not None:
+                            self._tc_locked(t)[0] += 1
                         self.flight_served += 1
                         return True, e.value
                     budget = 0  # resolved without a usable fill
             # timed out, or an unusable fill: the next pass computes
 
     def put(self, key: Any, gens: Any, value: object,
-            nbytes: int) -> bool:
+            nbytes: int, tenant: str | None = None) -> bool:
         """Insert one result stamped with the generations captured BEFORE
         its inputs were read.  False when refused (disabled, or larger
         than ``max_entry_bytes`` or the whole budget).  Every outcome
-        resolves the key's open flight."""
+        resolves the key's open flight.  With [tenants] on, the fill is
+        charged to ``tenant`` (or the thread's tenant scope)."""
         if not self.enabled:
             return False
+        t = self._caller_tenant(tenant)
         nbytes = int(nbytes) + ENTRY_OVERHEAD_BYTES
         if nbytes > self.max_entry_bytes or nbytes > self.budget:
             with self._lock:
@@ -241,19 +335,28 @@ class ResultCache:
             old = self._entries.pop(key, None)
             if old is not None:
                 self.bytes -= old.nbytes
-            self._entries[key] = _Entry(gens, value, nbytes)
+                self._tenant_untrack_locked(key, old)
+            e = _Entry(gens, value, nbytes, tenant=t)
+            self._entries[key] = e
             self.bytes += nbytes
+            self._tenant_track_locked(key, e)
             self.fills += 1
+            if t is not None:
+                self._tc_locked(t)[2] += 1
             self._resolve_flight_locked(key)
-            # strict budget: evict the LRU head until under, never the
+            # strict budget: evict until under, over-budget tenants'
+            # oldest entries first, then the global LRU head; never the
             # entry just inserted (it fits the budget on its own)
             while self.bytes > self.budget and len(self._entries) > 1:
-                vk = next((k for k in self._entries if k != key), None)
+                vk = self._victim_key_locked(key)
                 if vk is None:
                     break
                 ve = self._entries.pop(vk)
                 self.bytes -= ve.nbytes
+                self._tenant_untrack_locked(vk, ve)
                 self.evictions += 1
+                if ve.tenant is not None:
+                    self._tc_locked(ve.tenant)[3] += 1
             return True
 
     def _resolve_flight_locked(self, key: Any) -> None:
@@ -271,7 +374,9 @@ class ResultCache:
                        if isinstance(getattr(key, "k", None), tuple)
                        and key.k[:2] == (holder_uid, index)]
             for key in victims:
-                self.bytes -= self._entries.pop(key).nbytes
+                e = self._entries.pop(key)
+                self.bytes -= e.nbytes
+                self._tenant_untrack_locked(key, e)
                 self._resolve_flight_locked(key)
             self.invalidations += len(victims)
             return len(victims)
@@ -283,6 +388,8 @@ class ResultCache:
             n = len(self._entries)
             self._entries.clear()
             self.bytes = 0
+            self._tenant_bytes.clear()
+            self._tenant_lru.clear()
             self.invalidations += n
             for fl in self._flights.values():
                 fl.event.set()
@@ -312,10 +419,39 @@ class ResultCache:
                 "tenantPrefEvictions": self.tenant_pref_evictions,
             }
 
+    def tenant_stats(self) -> dict[str, dict]:
+        """Per-tenant accounting, the cache's half of ``GET
+        /debug/tenants``: live bytes and entries, hits, misses, fills,
+        evictions, and the soft budget while [tenants] is on.  Empty until
+        a tenant-attributed access."""
+        pol = _tenant.policy()
+        out: dict[str, dict] = {}
+        with self._lock:
+            names = set(self._tenant_bytes) | set(self._tenant_counters)
+            for t in sorted(names):
+                c = self._tenant_counters.get(t, [0, 0, 0, 0])
+                d = {
+                    "bytes": self._tenant_bytes.get(t, 0),
+                    "entries": len(self._tenant_lru.get(t, ())),
+                    "hits": c[0],
+                    "misses": c[1],
+                    "fills": c[2],
+                    "evictions": c[3],
+                }
+                if pol is not None:
+                    d["softBudget"] = int(
+                        self.budget * pol.quota_for(t).cache_share)
+                out[t] = d
+        return out
+
     def debug(self, top_n: int = 32) -> dict[str, Any]:
-        """The ``/debug/resultcache`` document: the totals and the largest
-        entries (key digest, readable key, bytes, age, hits)."""
+        """The ``/debug/resultcache`` document: the totals, the per-tenant
+        accounting once a tenant-attributed access happened, and the
+        largest entries (key digest, readable key, bytes, age, hits)."""
         out = self.stats_dict()
+        tstats = self.tenant_stats()
+        if tstats:
+            out["tenants"] = tstats
         now = time.monotonic()
         with self._lock:
             entries = sorted(self._entries.items(),

@@ -23,6 +23,8 @@ serves, with the reference's status codes and bodies:
     GET    /debug/ragged
     GET    /debug/ingest
     GET    /debug/resultcache
+    GET    /debug/admission
+    GET    /debug/tenants
 
 ``/hosts`` and ``/info`` answer for the one local node, as the reference
 does with its cluster off; ``/version`` is the reference's local-only
@@ -37,6 +39,26 @@ and protobuf as the reference does (pilosa_tpu/server/handler.py:
 ``Accept`` naming protobuf gets a protobuf answer, a query's error as
 ``QueryResponse.err`` with status 400.  ``GET /internal/translate/data``,
 which feeds replicas, waits for the cluster.
+
+Admission and deadlines (pilosa_tpu/server/handler.py:148-161, 356-544):
+each route has an admission class, ``query`` (the query route and
+``/export``) or ``ingest`` (the three imports and ``POST
+/internal/translate/keys``), or none.  Before the body is read, the
+dispatch parses ``X-Pilosa-Deadline`` (a malformed value is 400 and
+closes the connection), takes the tenant from ``X-Pilosa-Tenant`` or
+``?tenant=``, applies the controller's ``default_deadline`` to a gated
+request without one, and acquires a ticket: a shed answers
+``{"error", "reason", "class"[, "tenant"]}`` with its status (429 or
+503) and ``Retry-After`` and closes the connection.  The handler runs
+under the request's deadline scope; ``DeadlineExceededError`` is 503,
+counted as an expiry of the ticket's class, and the ticket is released
+in ``finally``.  The accept loop caps the handler threads at the gate's
+total capacity plus ``ACCEPT_HEADROOM`` and answers a connection past
+the cap with a fast raw 503.  Left out with the cluster: the
+``X-Pilosa-Class`` re-tag of the internal routes and the remote shed
+(``ShedByPeerError``); with the flight recorder: ``record_shed``; with
+the stats registry: the ``http.request`` and ``admission.accept_503``
+counters.
 """
 
 from __future__ import annotations
@@ -59,6 +81,10 @@ from pilosa_tpu_torch.models.index import IndexOptions
 from pilosa_tpu_torch.models.row import Row
 from pilosa_tpu_torch.parallel.results import (GroupCount, Pair, PairField,
                                                ValCount)
+from pilosa_tpu_torch.serve import admission as _admission
+from pilosa_tpu_torch.serve import deadline as _deadline
+from pilosa_tpu_torch.serve import tenant as _tenant
+from pilosa_tpu_torch.serve.deadline import DeadlineExceededError
 
 #: largest accepted request body
 MAX_REQUEST_BYTES = 256 << 20
@@ -131,17 +157,19 @@ def _field_row_dict(fr) -> dict:
     return d
 
 
-# (method, compiled path regex, handler-method name)
-_ROUTES: list[tuple[str, re.Pattern, str]] = []
+# (method, compiled path regex, handler-method name, admission class)
+_ROUTES: list[tuple[str, re.Pattern, str, str | None]] = []
 
 
-def route(method: str, pattern: str):
-    """Register a route; ``{name}`` segments capture path params."""
+def route(method: str, pattern: str, klass: str | None = None):
+    """Register a route; ``{name}`` segments capture path params.
+    ``klass`` is the route's admission class (``query``, ``ingest``), or
+    None for a route the gate leaves alone."""
     rx = re.compile(
         "^" + re.sub(r"\{(\w+)\}", r"(?P<\1>[^/]+)", pattern) + "$")
 
     def deco(fn):
-        _ROUTES.append((method, rx, fn.__name__))
+        _ROUTES.append((method, rx, fn.__name__, klass))
         return fn
 
     return deco
@@ -151,8 +179,24 @@ class Handler:
     """Routes HTTP requests to an API and serves on a background
     thread."""
 
-    def __init__(self, api: API, host: str = "127.0.0.1", port: int = 0):
+    #: handler threads allowed above the gate's capacity, for the ungated
+    #: routes and idle keep-alive connections (the cap counts
+    #: connections, each holding one thread while it lives)
+    ACCEPT_HEADROOM = 64
+
+    def __init__(self, api: API, host: str = "127.0.0.1", port: int = 0,
+                 admission=None):
         self.api = api
+        # the gate between HTTP and the launches
+        # (serve/admission.AdmissionController), or None
+        self.admission = admission
+        # the cap on handler threads: the gate's total capacity plus the
+        # headroom; None (no cap) without an enabled gate
+        self.max_threads = (
+            admission.total_capacity() + self.ACCEPT_HEADROOM
+            if admission is not None and admission.enabled else None)
+        self._threads_lock = threading.Lock()
+        self._threads_active = 0
         handler_self = self
 
         class _Req(BaseHTTPRequestHandler):
@@ -176,6 +220,27 @@ class Handler:
             request_queue_size = 128
             daemon_threads = True
 
+            def process_request(self, request, client_address):
+                # past the thread cap, a fast 503 from the accept loop
+                # instead of another thread
+                if not handler_self._thread_slot_acquire():
+                    handler_self._refuse_connection(request)
+                    self.shutdown_request(request)
+                    return
+                try:
+                    super().process_request(request, client_address)
+                except BaseException:
+                    # the worker never started: its release will not run
+                    handler_self._thread_slot_release()
+                    raise
+
+            def process_request_thread(self, request, client_address):
+                try:
+                    super().process_request_thread(request,
+                                                   client_address)
+                finally:
+                    handler_self._thread_slot_release()
+
         self.httpd = _Srv((host, port), _Req)
         self.httpd.block_on_close = False
         self.host = host
@@ -197,16 +262,84 @@ class Handler:
         if self._thread is not None:
             self._thread.join(timeout=5)
 
+    # --------------------------------------------------- accept-side cap
+
+    def _thread_slot_acquire(self) -> bool:
+        if self.max_threads is None:
+            return True
+        with self._threads_lock:
+            if self._threads_active < self.max_threads:
+                self._threads_active += 1
+                return True
+        return False
+
+    def _thread_slot_release(self) -> None:
+        if self.max_threads is None:
+            return
+        with self._threads_lock:
+            self._threads_active -= 1
+
+    _REFUSE_BODY = b'{"error":"server overloaded"}'
+    _REFUSE_RESPONSE = (
+        b"HTTP/1.1 503 Service Unavailable\r\n"
+        b"Content-Type: application/json\r\n"
+        b"Content-Length: " + str(len(_REFUSE_BODY)).encode() + b"\r\n"
+        b"Retry-After: 1\r\n"
+        b"Connection: close\r\n\r\n" + _REFUSE_BODY)
+
+    def _refuse_connection(self, request) -> None:
+        """A best-effort raw 503 from the accept loop, with a short
+        timeout so that a stalled client cannot hold the accepts."""
+        try:
+            request.settimeout(1.0)
+            request.sendall(self._REFUSE_RESPONSE)
+        except OSError:
+            pass
+
     # ------------------------------------------------------------ plumbing
 
     def _handle(self, req: BaseHTTPRequestHandler, method: str) -> None:
         parsed = urlparse(req.path)
         path = parsed.path.rstrip("/") or "/"
         params = {k: v[0] for k, v in parse_qs(parsed.query).items()}
-        for m, rx, name in _ROUTES:
+        for m, rx, name, klass in _ROUTES:
             match = rx.match(path) if m == method else None
             if match is None:
                 continue
+            # the deadline and the gate come BEFORE the body is read: a
+            # shed request does not pay for its upload (its unread body
+            # closes the connection, as a 413 does)
+            dl_hdr = req.headers.get(_deadline.HEADER)
+            dl = None
+            if dl_hdr is not None:
+                try:
+                    dl = _deadline.parse_header(dl_hdr)
+                except ValueError:
+                    req.close_connection = True
+                    self._error(req, 400,
+                                f"invalid {_deadline.HEADER} header: "
+                                f"{dl_hdr!r}")
+                    return
+            # the tenant id is an accounting key, never a credential: a
+            # malformed one degrades to the default tier, never a 400
+            tenant = _tenant.clean(req.headers.get("X-Pilosa-Tenant")
+                                   or params.get("tenant"))
+            req._pilosa_tenant = tenant
+            ticket = None
+            if self.admission is not None and klass is not None:
+                if dl is None and self.admission.default_deadline > 0:
+                    dl = _deadline.Deadline(self.admission.default_deadline)
+                try:
+                    ticket = self.admission.acquire(klass, dl, tenant=tenant)
+                except _admission.ShedError as e:
+                    req.close_connection = True
+                    body_obj = {"error": str(e), "reason": e.reason,
+                                "class": e.klass}
+                    if e.tenant is not None:
+                        body_obj["tenant"] = e.tenant
+                    self._json(req, body_obj, e.status,
+                               headers={"Retry-After": str(e.retry_after)})
+                    return
             try:
                 length = int(req.headers.get("Content-Length") or 0)
                 if length > MAX_REQUEST_BYTES:
@@ -215,23 +348,37 @@ class Handler:
                                           f"{MAX_REQUEST_BYTES} bytes")
                     return
                 body = req.rfile.read(length) if length else b""
-                getattr(self, name)(req, params, match.groupdict(), body)
+                with _deadline.scope(dl):
+                    getattr(self, name)(req, params, match.groupdict(),
+                                        body)
             except NotFoundError as e:
                 self._error(req, 404, str(e))
             except ConflictError as e:
                 self._error(req, 409, str(e))
+            except DeadlineExceededError as e:
+                # admitted, then expired in execution: the executor's
+                # checks dropped it before any launch
+                if ticket is not None:
+                    self.admission.count_expired(ticket.klass)
+                self._error(req, 503, str(e))
             except (ApiError, ValueError, KeyError, TypeError) as e:
                 self._error(req, 400, str(e))
             except Exception as e:  # noqa: BLE001 -- keep serving
                 self._error(req, 500, f"{type(e).__name__}: {e}")
+            finally:
+                if ticket is not None:
+                    ticket.release()
             return
         self._error(req, 404, "not found")
 
-    def _json(self, req, obj, status: int = 200) -> None:
+    def _json(self, req, obj, status: int = 200,
+              headers: dict | None = None) -> None:
         data = json.dumps(obj).encode()
         req.send_response(status)
         req.send_header("Content-Type", "application/json")
         req.send_header("Content-Length", str(len(data)))
+        for k, v in (headers or {}).items():
+            req.send_header(k, v)
         req.end_headers()
         req.wfile.write(data)
 
@@ -258,9 +405,10 @@ class Handler:
         else:
             self._json(req, {})
 
-    def _error(self, req, status: int, msg: str) -> None:
+    def _error(self, req, status: int, msg: str,
+               headers: dict | None = None) -> None:
         try:
-            self._json(req, {"error": msg}, status)
+            self._json(req, {"error": msg}, status, headers=headers)
         except (BrokenPipeError, ConnectionResetError):
             pass
 
@@ -317,7 +465,7 @@ class Handler:
         self.api.apply_schema(d.get("indexes", []))
         self._json(req, {})
 
-    @route("GET", "/export")
+    @route("GET", "/export", klass="query")
     def handle_export(self, req, params, path, body):
         buf = io.StringIO()
         self.api.export_csv(params["index"], params["field"],
@@ -332,7 +480,7 @@ class Handler:
 
         self._json(req, containers.debug())
 
-    @route("POST", "/internal/translate/keys")
+    @route("POST", "/internal/translate/keys", klass="ingest")
     def handle_translate_keys(self, req, params, path, body):
         """Keys -> ids, created when new: JSON or protobuf
         TranslateKeysRequest in, the same form out as ``Accept`` asks
@@ -350,7 +498,7 @@ class Handler:
         else:
             self._json(req, {"ids": ids})
 
-    @route("POST", "/index/{index}/query")
+    @route("POST", "/index/{index}/query", klass="query")
     def handle_post_query(self, req, params, path, body):
         """PQL in raw text, JSON or a protobuf QueryRequest; the answer
         in protobuf when ``Accept`` asks for it, else JSON
@@ -399,7 +547,9 @@ class Handler:
                 delta=params.get("nodelta") not in ("1", "true"),
                 # ?nocache=1: a real execution, no result-cache probe or
                 # fill (pilosa_tpu/server/handler.py:776-778)
-                cache=params.get("nocache") not in ("1", "true"))
+                cache=params.get("nocache") not in ("1", "true"),
+                # X-Pilosa-Tenant / ?tenant=, cleaned once by the dispatch
+                tenant=getattr(req, "_pilosa_tenant", None))
         except Exception as e:  # noqa: BLE001 -- the client's wire form
             if not proto_accept:
                 raise
@@ -507,6 +657,59 @@ class Handler:
 
         self._json(req, resultcache.cache().debug())
 
+    @route("GET", "/debug/admission")
+    def handle_debug_admission(self, req, params, path, body):
+        """The gate's state with the reference's keys
+        (pilosa_tpu/server/handler.py:1758-1771): per class the cap,
+        queue depth, in flight, waiting, EWMA service time and the
+        admitted / shed / expired totals, and the accept threads."""
+        if self.admission is None:
+            self._json(req, {"enabled": False})
+            return
+        out = self.admission.debug()
+        out["acceptThreads"] = {
+            "active": self._threads_active,
+            "max": self.max_threads,
+        }
+        self._json(req, out)
+
+    @route("GET", "/debug/tenants")
+    def handle_debug_tenants(self, req, params, path, body):
+        """Per-tenant isolation state with the reference's keys
+        (pilosa_tpu/server/handler.py:1773-1813): the [tenants] policy,
+        and per tenant the admission totals over the classes and the
+        result cache's accounting.  ``residency`` is None: the port has
+        no residency manager."""
+        from pilosa_tpu_torch.runtime import resultcache
+
+        cfg = _tenant.config()
+        admission = (self.admission.tenants_debug()
+                     if self.admission is not None else {})
+        cache = resultcache.cache().tenant_stats()
+        tenants: dict[str, dict] = {}
+        for name in sorted(set(admission) | set(cache)):
+            tenants[name] = {
+                "admission": admission.get(name),
+                "cache": cache.get(name),
+                "residency": None,
+            }
+        self._json(req, {
+            "enabled": cfg.enabled,
+            "default": {
+                "share": cfg.default_quota.share,
+                "queue": cfg.default_quota.queue,
+                "cacheShare": cfg.default_quota.cache_share,
+                "residencyShare": cfg.default_quota.residency_share,
+            },
+            "quotas": {
+                n: {"share": q.share, "queue": q.queue,
+                    "cacheShare": q.cache_share,
+                    "residencyShare": q.residency_share}
+                for n, q in cfg.quotas.items()
+            },
+            "tenants": tenants,
+        })
+
     @route("POST", "/index/{index}")
     def handle_create_index(self, req, params, path, body):
         d = json.loads(body or b"{}")
@@ -536,7 +739,7 @@ class Handler:
         self.api.delete_field(path["index"], path["field"])
         self._json(req, {})
 
-    @route("POST", "/index/{index}/field/{field}/import")
+    @route("POST", "/index/{index}/field/{field}/import", klass="ingest")
     def handle_import(self, req, params, path, body):
         """JSON {"rowIDs": [...], "columnIDs": [...], "timestamps":
         [...]}: unix seconds or nanoseconds, or ISO-8601 strings, each
@@ -572,7 +775,8 @@ class Handler:
             clear=params.get("clear") == "true")
         self._import_ok(req)
 
-    @route("POST", "/index/{index}/field/{field}/import-value")
+    @route("POST", "/index/{index}/field/{field}/import-value",
+           klass="ingest")
     def handle_import_value(self, req, params, path, body):
         """JSON {"columnIDs": [...], "values": [...], "columnKeys": [...]}
         or a protobuf ImportValueRequest (pilosa_tpu/server/handler.py:
@@ -589,7 +793,8 @@ class Handler:
                                col_keys=d.get("columnKeys"))
         self._import_ok(req)
 
-    @route("POST", "/index/{index}/field/{field}/import-roaring/{shard}")
+    @route("POST", "/index/{index}/field/{field}/import-roaring/{shard}",
+           klass="ingest")
     def handle_import_roaring(self, req, params, path, body):
         """Raw roaring bytes for the standard view, JSON {"views": {name:
         base64}}, or a protobuf ImportRoaringRequest (pilosa_tpu/server/

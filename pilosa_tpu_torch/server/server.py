@@ -33,6 +33,21 @@ result cache (runtime/resultcache.py) in place, so a second server in
 the process keeps the first's warm entries.  The server takes a
 reference at construction, where its knobs land, and gives it back on
 close; the last closer restores the knobs the first one found.
+
+Admission (``[admission]``, on by default as in the reference;
+server.py:76-83, 407-428): the ``admission_*`` knobs build the server's
+``serve.admission.AdmissionController``, which the HTTP handler gates
+its query and ingest routes with and the process-wide compactor runs its
+scans under (``internal``).  ``admission_enabled=False`` turns the gate,
+its shedding and the handler's thread cap off.
+
+The ``[tenants]`` knobs ``tenants_enabled`` (default false),
+``tenants_default_share``, ``tenants_default_queue``,
+``tenants_default_cache_share``, ``tenants_default_residency_share`` and
+``tenants_quotas`` (server.py:127-132, 347-364) are process-wide: the
+server takes a reference at construction, where its knobs land, and
+gives it back on close; the last closer restores the config the first
+one found, and a reopened server applies its knobs again.
 ``close`` is idempotent.
 """
 
@@ -49,6 +64,8 @@ from pilosa_tpu_torch.ops import containers, tape
 from pilosa_tpu_torch.parallel.coalescer import Coalescer
 from pilosa_tpu_torch.parallel.executor import Executor
 from pilosa_tpu_torch.runtime import resultcache
+from pilosa_tpu_torch.serve import tenant as _tenantcfg
+from pilosa_tpu_torch.serve.admission import AdmissionController
 from pilosa_tpu_torch.server.handler import Handler
 
 
@@ -72,7 +89,21 @@ class Server:
                  ingest_delta_enabled: bool = True,
                  ingest_delta_budget_bytes: int | None = None,
                  ingest_compact_threshold_bits: int | None = None,
-                 ingest_compact_interval: float | None = None):
+                 ingest_compact_interval: float | None = None,
+                 admission_enabled: bool = True,
+                 admission_query_cap: int = 32,
+                 admission_query_queue: int = 128,
+                 admission_ingest_cap: int = 16,
+                 admission_ingest_queue: int = 64,
+                 admission_internal_cap: int = 16,
+                 admission_internal_queue: int = 64,
+                 admission_default_deadline: float = 0.0,
+                 tenants_enabled: bool = False,
+                 tenants_default_share: int | None = None,
+                 tenants_default_queue: int | None = None,
+                 tenants_default_cache_share: float | None = None,
+                 tenants_default_residency_share: float | None = None,
+                 tenants_quotas: dict | None = None):
         self.device = devmod.resolve(device)
         self.data_dir = data_dir
         self.host = host
@@ -89,6 +120,30 @@ class Server:
                                   "array_max": containers_array_max,
                                   "run_cap": containers_run_cap}
         self._containers_retained = False
+        self.admission = AdmissionController(
+            query_cap=admission_query_cap,
+            query_queue=admission_query_queue,
+            ingest_cap=admission_ingest_cap,
+            ingest_queue=admission_ingest_queue,
+            internal_cap=admission_internal_cap,
+            internal_queue=admission_internal_queue,
+            default_deadline=admission_default_deadline,
+            enabled=admission_enabled)
+        self._tenants_knobs = dict(
+            enabled=tenants_enabled,
+            default_share=tenants_default_share,
+            default_queue=tenants_default_queue,
+            default_cache_share=tenants_default_cache_share,
+            default_residency_share=tenants_default_residency_share,
+            quotas=tenants_quotas)
+        _tenantcfg.retain()
+        self._tenants_retained = True
+        try:
+            _tenantcfg.configure(**self._tenants_knobs)
+        except BaseException:
+            self._tenants_retained = False
+            _tenantcfg.release()
+            raise
         self._cache_knobs = {"budget_bytes": cache_budget_bytes,
                              "max_entry_bytes": cache_max_entry_bytes,
                              "ttl_s": cache_ttl, "enabled": cache_enabled}
@@ -128,6 +183,10 @@ class Server:
             resultcache.retain()
             self._cache_retained = True
             resultcache.configure(**self._cache_knobs)
+        if not self._tenants_retained:
+            _tenantcfg.retain()
+            self._tenants_retained = True
+            _tenantcfg.configure(**self._tenants_knobs)
         self._closed = False
         containers.retain()
         self._containers_retained = True
@@ -137,7 +196,8 @@ class Server:
             self.executor = Executor(self.holder, device=self.device)
             self.executor.coalescer = self.coalescer
             self.api = API(self.holder, self.executor)
-            self.handler = Handler(self.api, self.host, self.port)
+            self.handler = Handler(self.api, self.host, self.port,
+                                   admission=self.admission)
             self.api.uri = self.handler.uri
         except BaseException:
             if self.holder is not None:
@@ -145,6 +205,9 @@ class Server:
                 self.holder = None
             self._release_containers()
             raise
+        # the compactor's scans run under the internal class (the
+        # compactor is process-wide: the last server opened gates it)
+        compactor.compactor().admission = self.admission
         self.handler.serve_background()
         return self
 
@@ -160,7 +223,13 @@ class Server:
         if self.holder is not None:
             self.holder.close()
             self.holder = None
+        c = compactor.compactor()
+        if c.admission is self.admission:
+            c.admission = None
         self._release_containers()
+        if self._tenants_retained:
+            self._tenants_retained = False
+            _tenantcfg.release()
         if self._cache_retained:
             self._cache_retained = False
             resultcache.release()

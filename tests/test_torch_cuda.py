@@ -18,8 +18,9 @@ launching K4 and K5, counts over a mutex field launching K2 and K3
 before and after a mutex move and GroupBy over mutex and bool fields
 launching K5, and an int field's range rows and aggregates
 launching K6, K4 and K1 where the CPU tests see their dispatch sites,
-and K3 and K3-kinds launched at once from many threads with different
-shared memory sizes.
+K3 and K3-kinds launched at once from many threads with different
+shared memory sizes, and an expired request or coalescer entry launching
+neither K2 nor K3 while its live batchmates share one K3 launch.
 
 Without a card every test here skips.  On a machine with one, run
 
@@ -986,3 +987,87 @@ def _plain_result(r):
     if hasattr(r, "count") and hasattr(r, "key"):
         return [r.key or r.id, r.count]
     return r
+
+
+@pytest.mark.cuda
+def test_expired_requests_and_coalescer_entries_launch_no_kernel(
+        cuda_device, bitmap_containers, monkeypatch):
+    """An expired request launches neither K2 (the direct route) nor K3
+    (under the coalescer); an entry that expires in the coalescer's
+    window leaves the batch before the launch, and its live batchmates
+    share one K3 launch, held against its plain version."""
+    import threading
+    import types
+
+    from pilosa_tpu_torch.pql import parse
+    from pilosa_tpu_torch.serve.deadline import (Deadline,
+                                                 DeadlineExceededError)
+
+    rng = np.random.default_rng(41)
+    n_shards = 3
+    h = Holder(None, device=cuda_device)
+    idx = h.create_index("i")
+    f = idx.create_field("f")
+    cols = {r: rng.choice(n_shards * SHARD_WIDTH, size=SHARD_WIDTH // 20,
+                          replace=False) for r in (1, 2, 3)}
+    for r, c in cols.items():
+        f.import_bits(np.full(len(c), r), c)
+    f.flush_deltas()
+    sets = {r: set(c.tolist()) for r, c in cols.items()}
+    qs = {"Count(Intersect(Row(f=1), Row(f=2)))": sets[1] & sets[2],
+          "Count(Union(Row(f=1), Row(f=3)))": sets[1] | sets[3],
+          "Count(Xor(Row(f=3), Row(f=2)))": sets[3] ^ sets[2]}
+    ex = Executor(h, device=cuda_device)
+    q0 = next(iter(qs))
+    assert ex.execute("i", q0) == [len(qs[q0])]  # K2 built and warm
+    k0 = ck.launch_counts()
+    for co in (None, Coalescer(window_s=0.2, max_batch=8,
+                               device=cuda_device)):
+        ex.coalescer = co
+        with pytest.raises(DeadlineExceededError):
+            ex.execute("i", q0, opt=ExecOptions(deadline=Deadline(-1.0)))
+    assert ck.launch_counts() == k0
+
+    real = ck.vm_counts
+
+    def held(*args):
+        got = real(*args)
+        assert torch.equal(got, ck.vm_counts_plain(*args))
+        return got
+
+    monkeypatch.setattr(tape, "cuda_kernels", types.SimpleNamespace(
+        vm_counts=held, vm_counts_kinds=ck.vm_counts_kinds))
+    shards = tuple(range(n_shards))
+    members = [(q, None, 0.0) for q in qs] + [
+        (q, Deadline(-1.0), 0.1) for q in list(qs)[:2]]
+    # max_batch seals the one bucket when the last member arrives
+    co = Coalescer(window_s=5.0, max_batch=len(members),
+                   device=cuda_device)
+    got, errs = {}, {}
+
+    def run(i, q, dl, delay):
+        import time
+
+        time.sleep(delay)
+        child = parse(q).calls[0].children[0]
+        try:
+            got[i] = co.count(ex, idx, child, shards, deadline=dl)
+        except DeadlineExceededError as e:
+            errs[i] = e
+
+    tape.reset_counters()
+    k0 = ck.launch_counts()
+    ts = [threading.Thread(target=run, args=(i, *m))
+          for i, m in enumerate(members)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=120)
+    h.close()
+    assert got == {i: len(s) for i, s in enumerate(qs.values())}
+    assert sorted(errs) == [3, 4]
+    k1 = ck.launch_counts()
+    assert k1["gathered_count_and"] == k0["gathered_count_and"]
+    assert k1["vm_counts"] - k0["vm_counts"] == \
+        tape.counters()["vm.executions"] == 1
+    assert tape.counters()["vm.queries"] == len(qs)

@@ -23,11 +23,13 @@ from pilosa_tpu.ingest import compactor as jcompactor
 from pilosa_tpu.ops import containers as jct
 from pilosa_tpu.parallel import meshexec
 from pilosa_tpu.runtime import resultcache as jrc
+from pilosa_tpu.serve import tenant as jtenant
 from pilosa_tpu.server.server import Server as JServer
 from pilosa_tpu_torch import ingest as tingest
 from pilosa_tpu_torch.ingest import compactor as tcompactor
 from pilosa_tpu_torch.ops import containers as tct
 from pilosa_tpu_torch.runtime import resultcache as trc
+from pilosa_tpu_torch.serve import tenant as ttenant
 from pilosa_tpu_torch.server.server import Server as TServer
 
 PB = "application/x-protobuf"
@@ -36,11 +38,25 @@ _INGEST = ("delta_enabled", "delta_budget_bytes", "compact_threshold_bits",
 _CACHE = ("enabled", "budget", "max_entry_bytes", "ttl_s")
 
 
+def tenant_configs() -> list:
+    """Both packages' [tenants] configs, field by field (copies)."""
+    return [{"enabled": c.enabled, "default_quota": c.default_quota,
+             "quotas": dict(c.quotas), "seen": set(c.seen)}
+            for c in (jtenant.config(), ttenant.config())]
+
+
+def restore_tenant_configs(was: list) -> None:
+    for m, fields in zip((jtenant, ttenant), was):
+        for k, v in fields.items():
+            setattr(m.config(), k, v)
+
+
 @contextlib.contextmanager
 def configuration():
     """Mesh off; restores both [ingest] configs and baselines, both
-    [containers] configs, both result caches' knobs and the mesh config,
-    and checks that both compactors' retain counts are back."""
+    [containers] configs, both result caches' knobs, both [tenants]
+    configs and the mesh config, and checks that both compactors' retain
+    counts are back."""
     mesh_was = (meshexec._cfg.enabled, meshexec._cfg.axis_size)
     ing = [{k: getattr(m.config(), k) for k in _INGEST}
            for m in (jingest, tingest)]
@@ -48,12 +64,14 @@ def configuration():
     cts = [{k: getattr(m.config(), k) for k in type(m.config()).__slots__}
            for m in (jct, tct)]
     rcs = [{k: getattr(m.cache(), k) for k in _CACHE} for m in (jrc, trc)]
+    tenants = tenant_configs()
     refs = (jcompactor.refs(), tcompactor.refs())
     meshexec.configure(enabled=False)
     try:
         yield
     finally:
         assert (jcompactor.refs(), tcompactor.refs()) == refs
+        restore_tenant_configs(tenants)
         for m, was in zip((jrc, trc), rcs):
             for k, v in was.items():
                 setattr(m.cache(), k, v)
@@ -66,13 +84,15 @@ def configuration():
 
 
 @contextlib.contextmanager
-def servers(root: str):
-    """(JAX server, port server) under ``root``, closed on exit."""
+def servers(root: str, **kw):
+    """(JAX server, port server) under ``root``, closed on exit; ``kw``
+    are knobs both servers take (``admission_*``, ``tenants_*``)."""
     js = JServer(os.path.join(root, "j"), mesh_enabled=False,
                  coalescer_enabled=True, ragged_prewarm=False,
-                 ingest_compact_interval=3600.0)
+                 ingest_compact_interval=3600.0, **kw)
     ts = TServer(os.path.join(root, "t"), device="cpu",
-                 coalescer_enabled=True, ingest_compact_interval=3600.0)
+                 coalescer_enabled=True, ingest_compact_interval=3600.0,
+                 **kw)
     try:
         js.open()
         ts.open()
