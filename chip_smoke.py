@@ -20,7 +20,13 @@ serving shell (a TOML file, the CLI's import, export, check and inspect,
 the ``/internal`` reads) -- and holds every hand-written kernel against
 its plain PyTorch version on the card.
 
-The server runs the port's defaults, with one knob set: its compactor
+The HBM budget of the residency manager is stated as an operator of
+this shape states it: ``PILOSA_TPU_DEVICE_BUDGET_BYTES`` set to the
+default's own figure, 60 % of the card's memory, which lifts the
+reference's 512 MiB entry cap to a quarter of the budget, so that v's
+704 MiB plane stack is cached.  The server runs the port's defaults
+([residency] tiers, the prefetcher and [ragged] prewarm on), with one
+knob set: its compactor
 scans once an hour (``INGEST_INTERVAL``), so that every delta merge in
 the run is a writer's (a fragment's snapshot past ``max_op_n`` WAL
 operations, the 64 MiB budget), a query's (``?nodelta=1``, a whole-matrix
@@ -147,7 +153,7 @@ paths read base rows, as they would once the compactor had run.
    field kf on the served index, 16 row keys at ~8 %, their ids from
    ``POST /internal/translate/keys`` in protobuf and their bits by id
    through protobuf ``/import-roaring``, row attributes on every row; a
-   keyed index ki of 1,000,000 column keys and 8 row keys loaded through
+   keyed index ki of 500,000 column keys and 8 row keys loaded through
    protobuf ``/import`` (rowKeys/columnKeys) in batches of 100,000 bits,
    100,000 of the keys looked up again through the translate route,
    1,000 column attributes; a keyed ``Count(Intersect)`` coalesced (K3)
@@ -185,6 +191,25 @@ paths read base rows, as they would once the compactor had run.
    most one launch; a Shift Count, MinRow/MaxRow, Store and ClearRow at
    full width against the oracle; host-clock times of warm hits against
    ``?nocache=1`` misses of a Count, a TopN, a GroupBy and a Shift Count;
+11i. the residency phase (``phase_residency``): the manager's budget,
+   bytes, entries and evictions after every earlier phase; the budget set
+   to 128 MiB (a few 32-64 MiB stacks and leaves), 5 rounds of 7
+   ``Count(Intersect(a, b))`` over seeded pairs of f rows 1-4 and g rows
+   1-3, each once with ``?nocoalesce=true`` (K2), once through the
+   coalescer (K3) and once with ``?notiers=1``, the last round with a
+   promotion wait of 0 (host-bytes reads), then ``TopN(s, Row(f=1),
+   n=10)`` (K4 over a 512 MiB matrix stack, over the budget) and
+   ``Count(Row(v > 1000))`` (K6 over v's 704 MiB plane stack, over the
+   entry cap) twice each; every answer the oracle's, the three bodies of
+   a pair byte-identical, and the tracked bytes never over the larger of
+   the budget and the largest entry; the reads' medians by route (HBM
+   hit, promoted, host bytes, rebuilt); a real out-of-memory error: warm
+   leaves, a ballast tensor over the card's free memory but 16 MiB, and
+   a dense ``Count(Row(s=5))`` whose cold 32 MiB stack uploads only after
+   ``run_with_oom_retry`` has evicted the warm leaves (one retry, the
+   budget 10 % smaller); and rows of a fresh field through ``/import``,
+   prewarmed in the background, whose first dense Count reads the
+   prewarmed stacks;
 11h. the shell phase (``phase_shell``), after the main server has
    closed: a TOML file that sets every key the port applies to a value
    the phase observes (``[cache] enabled = false``, ``[admission]
@@ -207,7 +232,8 @@ paths read base rows, as they would once the compactor had run.
    server stopped, ``check`` all ``ok``, ``inspect``'s rows and bits the
    oracle's, ``check`` of a directory a live server holds ``FAIL open``;
    and ``python -m pilosa_tpu_torch server -c FILE`` in a subprocess,
-   serving on cuda, one Count equal to the oracle, exit 0 on SIGTERM.
+   serving on cuda, its ``[ragged] prewarm`` K3 launches counted
+   (``/debug/ragged``), one Count equal to the oracle, exit 0 on SIGTERM.
    Its ``shell`` line has the import rate, the export and check times,
    the Counts' times and the launches;
 12. K3 timing on the inputs of one real flush of step 7, K2 timing on
@@ -230,8 +256,8 @@ paths read base rows, as they would once the compactor had run.
 Latencies are host-clock times; each is reported as the median with its
 10th and 90th percentiles and the sample count.
 
-It prints the card, a ``shell`` line, a ``queries`` line, a
-``kernels`` line and last
+It prints the card, a ``residency`` line, a ``shell`` line, a
+``queries`` line, a ``kernels`` line and last
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero and
 prints no result; so does a machine where torch sees no card, or a
 directory that holds this script and nothing else of the repository.
@@ -1909,6 +1935,7 @@ def phase_bsi(ck, srv, http: Http, roaring, data: dict, cpr: int,
     wants = bsi_oracles(bsi, f1, width)
     run_bsi_queries(ck, http, wants, 1, out["queries"], tag="_after_set")
     out["launches"] = ck.launch_counts()
+    out["gt1000_want"] = wants["gt1000"]  # the residency phase's K6 oracle
     # ---- end of the BSI path
     log(f"bsi path launches: {out['launches']}")
 
@@ -3292,7 +3319,8 @@ def phase_field_types(ck, srv, http: Http, roaring, data: dict, cpr: int,
 
 KEYS_ROWS = 16  # row keys of the keyed set field kf on the served index
 KEYS_FILL = 82  # of 1024: kf's rows at ~8 % fill
-KEYS_COLUMNS = 1_000_000  # column keys of the keyed index ki
+KEYS_COLUMNS = 500_000  # column keys of the keyed index ki (1,000,000
+#                          before the residency phase: the first depth cut)
 KEYS_ROW_KEYS = 8  # row keys of ki's field kr
 KEYS_BATCH = 100_000  # bits of each protobuf /import into ki
 KEYS_COLUMN_ATTRS = 1000  # columns of ki with attributes
@@ -4262,6 +4290,322 @@ def phase_cache(ck, srv, data: dict, card: dict) -> dict:
 # ------------------------------------------------------------ shell phase
 
 
+RES_BUDGET = 128 << 20  # the residency phase's HBM budget (bytes)
+RES_ROWS = (("f", 1), ("f", 2), ("f", 3), ("f", 4), ("g", 1), ("g", 2),
+            ("g", 3))
+RES_ROUNDS = 5  # churn rounds...
+RES_PAIRS = 7  # ...of this many Count(Intersect) pairs, seeded order
+OOM_HEADROOM = 16 << 20  # card bytes the ballast leaves: under one stack
+OOM_BUDGET = 1 << 30  # the budget the OOM step's warm entries fit under
+PREWARM_SHARDS = 8  # field p's shards...
+PREWARM_BITS = 5243  # ...and bits per row and shard: two rows pass
+#                      max_op_n, so the import merges into base rows
+
+
+def tier_counters(residency) -> dict:
+    """The manager's and the promotion pool's counters now."""
+    st = residency.manager().stats()
+    p = residency.promoter().stats()
+    t = st["tiers"]
+    return {"evictions": st["evictions"], "admits": st["admits"],
+            "demotions": t["demotions"], "hits": t["hits"],
+            "misses": t["misses"], "fallbacks": t["fallbacks"],
+            "prefetchUseful": t["prefetchUseful"],
+            "promotions": p["promotions"],
+            "prefetchCompleted": p["prefetchCompleted"],
+            "prefetchIssued": p["prefetchIssued"],
+            "failures": p["failures"], "sheds": p["sheds"]}
+
+
+def tier_route(d0: dict, d1: dict) -> str:
+    """What one query's tiered reads were, from the counters around it:
+    a host-bytes read (fallback), a promotion that landed in its wait, a
+    rebuild from the fragments (cold), or HBM hits only."""
+    if d1["fallbacks"] > d0["fallbacks"]:
+        return "fallback"
+    if d1["hits"] > d0["hits"]:
+        return "promoted"
+    if d1["misses"] > d0["misses"]:
+        return "cold"
+    return "hbm"
+
+
+def raw_query(http: Http, pql: str, flags: str) -> tuple[bytes, float]:
+    """One query's raw body (status 200 required) and its host-clock ms;
+    ``?nocache=1`` joins the flags as in ``Http.query``."""
+    if http.nocache:
+        flags += ("&" if "?" in flags else "?") + "nocache=1"
+    t0 = time.perf_counter()
+    st, body = http.post("/index/i/query" + flags, pql.encode(),
+                         "text/plain")
+    ms = (time.perf_counter() - t0) * 1e3
+    check(st == 200, f"{pql}{flags} -> HTTP {st}: {body[:300]!r}")
+    return body, ms
+
+
+def phase_residency(torch, ck, residency, prewarm, srv, data: dict,
+                    gt1000: int, seed: int) -> dict:
+    """Tiered residency on the served index (runtime/residency.py).
+
+    (a) the manager at the budget in force, after every earlier phase:
+        its budget, bytes, entries and evictions, and the card's
+        allocated bytes;
+    (b) churn: the budget set to ``RES_BUDGET``, the host tier at its
+        default; ``RES_ROUNDS`` rounds of ``RES_PAIRS``
+        ``Count(Intersect(a, b))`` over pairs of f1-f4 and g1-g3 in a
+        seeded order, each once with ``?nocoalesce=true`` (K2, or dense
+        with f4), once through the coalescer (K3) and once with
+        ``?notiers=1``, the last round with a promotion wait of 0, so that
+        demoted reads take the host-bytes route; then
+        ``TopN(s, Row(f=1), n=10)`` (K4 over a 512 MiB matrix stack, over
+        the budget: the oversized-entry rule) and ``Count(Row(v > 1000))``
+        (K6 over v's 704 MiB plane stack, over the 512 MiB entry cap: built
+        per query) twice each; every answer the oracle's, the three
+        bodies of a pair byte-identical, and the tracked total never over
+        the larger of the budget and the largest entry;
+    (c) out of memory: six leaves and a matrix stack warmed under
+        ``OOM_BUDGET``, the card's
+        free memory taken by a ballast tensor but ``OOM_HEADROOM`` and
+        every free 32 MiB block of the allocator's cache by chunks, then a
+        dense ``Count(Row(s=5))`` whose cold 32 MiB stack cannot be
+        uploaded until the retry has evicted the warm entries; exact, one
+        retry, the budget 10 % smaller; the ballast released;
+    (d) prewarm: rows 1 and 2 of a fresh field p through ``/import``,
+        ``prewarm.drain()``, then the first dense Count over them reads
+        the prewarmed stacks (the same cached tensors before and after).
+
+    Launch counts are zeroed at the start and read at the end; the budget
+    and the promotion wait are put back."""
+    t_phase = time.perf_counter()
+    mgr = residency.manager()
+    dev = torch.device("cuda", 0)
+    out: dict = {}
+    st = mgr.stats()
+    out["defaults"] = {
+        "budget": st["budget"], "operator_sized": mgr.operator_sized,
+        "probe_budget": int(torch.cuda.mem_get_info(dev)[1] * 0.6),
+        "total": st["total"], "entries": st["entries"],
+        "evictions": st["evictions"],
+        "host_bytes": st["tiers"]["host"]["bytes"],
+        "memory_allocated": torch.cuda.memory_allocated(dev)}
+    log("residency (a), after the earlier phases: " + json.dumps(
+        out["defaults"]))
+    budget0 = mgr.budget
+    wait0 = residency.config().promote_wait_ms
+    prefetch0 = residency.config().prefetch
+    http = Http(srv.uri, nocache=True)
+    ck.reset_launch_counts()
+    c0 = tier_counters(residency)
+    oom0 = residency.oom_retries()
+    try:
+        # (b) churn under a budget of a few stacks; the manager trims to a
+        # new budget only at its next admit, so the earlier phases'
+        # entries are evicted (demoted) first
+        mgr.budget = RES_BUDGET
+        out["trimmed"] = mgr.evict_all()
+        c0 = tier_counters(residency)
+        rng = np.random.default_rng(seed + 29)
+        pairs = [(a, b) for i, a in enumerate(RES_ROWS)
+                 for b in RES_ROWS[i + 1:]]
+        routes: dict = {}
+        largest = 0
+
+        def timed(pql: str, flags: str, want_body=None):
+            nonlocal largest
+            d0 = tier_counters(residency)
+            body, ms = raw_query(http, pql, flags)
+            route = ("notiers" if "notiers" in flags
+                     else tier_route(d0, tier_counters(residency)))
+            routes.setdefault(route, []).append(ms)
+            st = mgr.stats()
+            top = mgr.top_entries(1)
+            largest = max([largest] + [e["bytes"] for e in top])
+            check(st["total"] <= max(st["budget"], largest),
+                  f"{pql}{flags}: tracked {st['total']} over the budget "
+                  f"{st['budget']} and the largest entry {largest}")
+            if want_body is not None:
+                check(body == want_body, f"{pql}{flags}: {body!r} is not "
+                                         f"{want_body!r}")
+            return body
+
+        for rnd in range(RES_ROUNDS):
+            if rnd == RES_ROUNDS - 1:
+                residency.configure(promote_wait_ms=0.0)
+            for k in rng.permutation(len(pairs))[:RES_PAIRS]:
+                a, b = pairs[k]
+                tree = ("and", a, b)
+                pql = f"Count({tree_pql(tree)})"
+                want = json.dumps({"results": [oracle(tree, data)]}
+                                  ).encode()
+                body = timed(pql, "?nocoalesce=true")
+                check(json.loads(body) == json.loads(want),
+                      f"{pql}: {body!r} is not the oracle's {want!r}")
+                timed(pql, "", body)
+                timed(pql, "?notiers=1", body)
+        residency.configure(promote_wait_ms=wait0)
+        f1 = data["f"][1][:SCAN_SHARDS]
+        want_topn = topn_json({r: popcounts(m & f1)
+                               for r, m in data["s"].items()}, 10)
+        for pql, want in (("TopN(s, Row(f=1), n=10)", [want_topn]),
+                          ("Count(Row(v > 1000))", [gt1000])):
+            for _ in range(2):
+                body = timed(pql, "")
+                check(json.loads(body)["results"] == want,
+                      f"{pql}: {body[:300]!r} is not the oracle's")
+        c1 = tier_counters(residency)
+        churn = {k: c1[k] - c0[k] for k in c1}
+        churn["demand_promotions"] = (churn["promotions"]
+                                      - churn["prefetchCompleted"])
+        st = mgr.stats()
+        churn.update(budget=st["budget"], total=st["total"],
+                     host_bytes=st["tiers"]["host"]["bytes"],
+                     host_entries=st["tiers"]["host"]["entries"],
+                     high_water=st["high_water"], largest_entry=largest,
+                     kinds=st["kinds"],
+                     # the card's bytes beside the tracked ones: the
+                     # container engine's staging and megapool memos hold
+                     # pools the budget does not count
+                     memory_allocated=torch.cuda.memory_allocated(dev))
+        churn["median_ms"] = {r: statistics.median(v)
+                              for r, v in routes.items()}
+        churn["reads"] = {r: len(v) for r, v in routes.items()}
+        out["churn"] = churn
+        check(churn["evictions"] > 0 and churn["demotions"] > 0,
+              f"no eviction under {RES_BUDGET} bytes: {churn}")
+        check(churn["promotions"] > 0, f"nothing was promoted: {churn}")
+        log("residency (b): " + json.dumps(churn))
+
+        # (c) a real out-of-memory error on the card, with the prefetcher
+        # paused and the promotion pool idle: a promotion must not take
+        # the memory the retry frees
+        residency.configure(prefetch=False)
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 30:
+            ps = residency.promoter().stats()
+            if ps["queue"] == 0 and ps["inFlight"] == 0:
+                break
+            time.sleep(0.05)
+        mgr.budget = OOM_BUDGET
+        for a, b in ((("f", 1), ("f", 2)), (("f", 3), ("g", 1)),
+                     (("g", 2), ("g", 3))):
+            raw_query(http, f"Count({tree_pql(('and', a, b))})",
+                      "?nocoalesce=true")
+        # and s's 512 MiB matrix stack: the retry's dense Count needs a
+        # few of its 64 MiB int64 temporaries beside the stack, so the
+        # eviction must free more than the six leaves
+        body, _ms = raw_query(http, "TopN(s, Row(f=1), n=10)", "")
+        check(json.loads(body)["results"] == [want_topn],
+              f"the OOM step's TopN: {body[:300]!r}")
+        warm = mgr.stats()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info(dev)[0]
+        ballast = None
+        size = free - OOM_HEADROOM
+        while ballast is None and size > 0:
+            try:
+                ballast = torch.empty(size, dtype=torch.uint8, device=dev)
+            except torch.cuda.OutOfMemoryError:
+                size -= 64 << 20
+        # the allocator's cache keeps free room inside segments that hold
+        # a live block, where mem_get_info does not see it: take every
+        # free block of a stack's size too, so that no upload can land
+        chunks = []
+        while True:
+            try:
+                chunks.append(torch.empty(32 << 20, dtype=torch.uint8,
+                                          device=dev))
+            except torch.cuda.OutOfMemoryError:
+                break
+        left = torch.cuda.mem_get_info(dev)[0]
+        n_chunks = len(chunks)
+        want = popcounts(data["s"][5])
+        n0, b0 = residency.oom_retries(), mgr.budget
+        try:
+            res, ms = http.query("Count(Row(s=5))",
+                                 "?nocoalesce=true&nocontainers=1")
+        finally:
+            del ballast, chunks
+            torch.cuda.empty_cache()
+            residency.configure(prefetch=prefetch0)
+        check(res == [want], f"Count(Row(s=5)) under the ballast: {res} != "
+                             f"{want}")
+        oom = {"warm_entries": warm["entries"], "warm_bytes": warm["total"],
+               "free_before": free, "ballast": size,
+               "chunks_32mib": n_chunks, "free_left": left,
+               "retries": residency.oom_retries() - n0,
+               "budget_before": b0, "budget_after": mgr.budget, "ms": ms,
+               "entries_after": mgr.stats()["entries"]}
+        if oom["retries"]:
+            check(oom["retries"] == 1 and mgr.budget == int(b0 * 0.9),
+                  f"the OOM retry: {oom}")
+        else:
+            oom["not_raised"] = (f"{left} bytes stayed free under the "
+                                 f"ballast and {n_chunks} 32 MiB chunks: "
+                                 f"the 32 MiB upload fit")
+        out["oom"] = oom
+        log("residency (c): " + json.dumps(oom))
+
+        # (d) prewarm of an import
+        mgr.budget = budget0
+        check(http.post("/index/i/field/p", b"{}")[0] == 200,
+              "create field p")
+        from pilosa_tpu_torch.shardwidth import SHARD_WIDTH as width
+
+        cols = {r: np.concatenate([
+            s * width + rng.choice(width, PREWARM_BITS, replace=False)
+            for s in range(PREWARM_SHARDS)]) for r in (1, 2)}
+        body = json.dumps({"rowIDs": [1] * len(cols[1]) + [2] * len(cols[2]),
+                           "columnIDs": cols[1].tolist()
+                           + cols[2].tolist()}).encode()
+        p0 = prewarm.counters()
+        t0 = time.perf_counter()
+        check(http.post("/index/i/field/p/import", body)[0] == 200,
+              "import into p")
+        import_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        check(prewarm.drain(timeout=60), "prewarm did not drain")
+        drain_ms = (time.perf_counter() - t0) * 1e3
+        p1 = prewarm.counters()
+        idx = srv.holder.index("i")
+        f = idx.field("p")
+        shards = tuple(sorted(idx.available_shards()))
+        warm = {r: f._device_cache.get(("row", r, shards)) for r in (1, 2)}
+        check(all(v is not None for v in warm.values()),
+              f"prewarm left no stack: {sorted(map(str, f._device_cache))}")
+        want = int(np.intersect1d(cols[1], cols[2]).size)
+        d0 = tier_counters(residency)
+        res, first_ms = http.query("Count(Intersect(Row(p=1), Row(p=2)))",
+                                   "?nocoalesce=true&nocontainers=1")
+        d1 = tier_counters(residency)
+        check(res == [want], f"the prewarmed Count: {res} != {want}")
+        hit = all(f._device_cache.get(("row", r, shards)) is warm[r]
+                  for r in (1, 2))
+        check(hit and d1["misses"] == d0["misses"],
+              "the first Count after prewarm rebuilt a stack")
+        out["prewarm"] = {k: p1[k] - p0[k] for k in p1}
+        out["prewarm"].update(import_ms=import_ms, drain_ms=drain_ms,
+                              first_count_ms=first_ms, hbm_hit=hit)
+        log("residency (d): " + json.dumps(out["prewarm"]))
+    finally:
+        mgr.budget = budget0
+        residency.configure(promote_wait_ms=wait0, prefetch=prefetch0)
+    out["launches"] = ck.launch_counts()
+    for k in ("gathered_count_and", "vm_counts", "row_counts_masked",
+              "bsi_compare"):
+        check(out["launches"][k] > 0, f"{k} never launched in the residency "
+                                      f"phase: {out['launches']}")
+    out["oom_retries"] = residency.oom_retries() - oom0
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"residency": {
+        "defaults": out["defaults"], "churn": out["churn"],
+        "trimmed": out["trimmed"], "oom": out["oom"],
+        "prewarm": out["prewarm"],
+        "launches": {k: v for k, v in out["launches"].items() if v},
+        "phase_s": out["phase_s"]}}))
+    return out
+
+
 def shell_toml(tmp: str, port: int) -> str:
     """The shell phase's config: every key the port applies set to a
     value the phase can observe."""
@@ -4358,6 +4702,7 @@ def shell_entry_point(toml: str, want: int) -> dict:
         check(" on cuda" in line, f"the entry point said {line!r}")
         uri = line.split(" at ")[1].split()[0]
         ready_s = time.perf_counter() - t0
+        warmed, prewarm_s = ragged_prewarm_wait(uri, 0)
         got, ms = Http(uri).query("Count(Intersect(Row(f=1), Row(f=2)))")
         check(got == [want], f"the entry point's Count: {got} != {want}")
     finally:
@@ -4369,7 +4714,30 @@ def shell_entry_point(toml: str, want: int) -> dict:
             proc.kill()
             rc = proc.wait()
     check(rc == 0, f"the entry point exited {rc} on SIGTERM")
-    return {"ready_s": ready_s, "count_ms": ms}
+    return {"ready_s": ready_s, "count_ms": ms,
+            "ragged_prewarm": {"launches": warmed, "s_after_ready":
+                               prewarm_s}}
+
+
+#: K3 launches of the [ragged] prewarm at the default max-batch of 32:
+#: the pow2 batch ladder 2, 4, 8, 16, 32 (ops/tape.prewarm)
+RAGGED_LADDER = 5
+
+
+def ragged_prewarm_wait(uri: str, base: int) -> tuple[int, float]:
+    """Wait until the served process's ``tape.prewarmed`` counter
+    (``GET /debug/ragged``) has moved ``RAGGED_LADDER`` past ``base``: the
+    [ragged] prewarm's launches.  Returns (launches, seconds waited)."""
+    t0 = time.perf_counter()
+    n = 0
+    while time.perf_counter() - t0 < 120:
+        n = shell_get(uri, "/debug/ragged")["counters"]["tape.prewarmed"]
+        if n - base >= RAGGED_LADDER:
+            break
+        time.sleep(0.02)
+    check(n - base == RAGGED_LADDER, f"the ragged prewarm made {n - base} "
+                                     f"launches")
+    return n - base, time.perf_counter() - t0
 
 
 def phase_shell(ck, seed: int) -> dict:
@@ -4421,6 +4789,9 @@ def phase_shell(ck, seed: int) -> dict:
                 result["error"] = e
                 ready.set()
 
+        from pilosa_tpu_torch.ops import tape
+
+        prewarmed = tape.counters()["tape.prewarmed"]
         th = threading.Thread(target=serve, daemon=True)
         th.start()
         check(ready.wait(300), "run_server did not start")
@@ -4429,6 +4800,9 @@ def phase_shell(ck, seed: int) -> dict:
         try:
             check(shell_get(uri, "/info")["cpuType"] == "cuda+host",
                   "run_server does not serve on cuda")
+            # the [ragged] prewarm's K3 launches land before the counts
+            # are zeroed
+            ragged_prewarm_wait(uri, prewarmed)
             ck.reset_launch_counts()
             # 3. three CSVs through the CLI
             n_f = len(f_rows)
@@ -4624,6 +4998,17 @@ def run_paths(torch, ck, bm, kp, containers, tape, Server, roaring,
     try:
         srv.open()
         check(srv.device.type == "cuda", f"server runs on {srv.device}")
+        # [ragged] prewarm (on by default): its K3 launches land before
+        # any path zeroes the counts
+        t0 = time.perf_counter()
+        while (not srv.ragged_prewarm_stats["done"]
+               and time.perf_counter() - t0 < 120):
+            time.sleep(0.05)
+        rp = srv.ragged_prewarm_stats
+        check(rp["done"] and rp["failures"] == 0 and rp["launches"] > 0,
+              f"the ragged prewarm: {rp}")
+        log(f"ragged prewarm: {rp['launches']} K3 launches in "
+            f"{rp['seconds'] * 1e3:.1f} ms after open")
         check(srv.coalescer.enabled and srv.coalescer.vm,
               "the coalescer or the VM is off on cuda")
         check(containers.config().kinds, "container kinds are off by "
@@ -4664,6 +5049,11 @@ def run_paths(torch, ck, bm, kp, containers, tape, Server, roaring,
                                  seed)
         out["admission"] = phase_admission(ck, tape, srv, data, card)
         out["cache"] = phase_cache(ck, srv, data, card)
+        from pilosa_tpu_torch.runtime import prewarm, residency
+
+        out["residency"] = phase_residency(
+            torch, ck, residency, prewarm, srv, data,
+            out["bsi"].pop("gt1000_want"), seed)
         out["k3"] = phase_k3_time(torch, ck, tape,
                                   out["coalesced"].pop("flush"), card)
         out["k2"] = phase_k2_time(torch, ck, bm, out.pop("probe"), card)
@@ -4739,6 +5129,15 @@ def main(argv: list[str] | None = None) -> int:
     try:
         card = phase_header(torch)
         dev = torch.device("cuda", 0)
+        # the HBM budget sized as an operator of this shape sizes it: the
+        # default's own figure, 60 % of the card, stated through the
+        # variable, which lifts the 512 MiB entry cap to a quarter of the
+        # budget, so that v's 704 MiB plane stack is cached
+        # (runtime/residency.py, Field._entry_cap)
+        os.environ.setdefault("PILOSA_TPU_DEVICE_BUDGET_BYTES", str(int(
+            torch.cuda.mem_get_info(dev)[1] * 0.6)))
+        log(f"HBM budget: PILOSA_TPU_DEVICE_BUDGET_BYTES="
+            f"{os.environ['PILOSA_TPU_DEVICE_BUDGET_BYTES']}")
         phase = "build"
         phase_build(nvcc_build)
         phase = "K2 check"
@@ -4785,6 +5184,9 @@ def main(argv: list[str] | None = None) -> int:
                     "keys": out["keys"],
                     "admission": out["admission"],
                     "cache": out["cache"],
+                    "residency": {k: out["residency"][k] for k in (
+                        "defaults", "trimmed", "churn", "oom", "prewarm",
+                        "oom_retries", "phase_s")},
                     "k3_kinds_us": out["k3k"]["spread_us"],
                     "k3_kinds_shape": out["k3k"]["shape"],
                     "k3_kinds_all_slots_bound_ms": out["k3k"]["all_slots_bound_ms"],
@@ -4805,9 +5207,10 @@ def main(argv: list[str] | None = None) -> int:
                              ("all_slots_bound_ms", "host_plan_us")))}}))
     # every kernel's launches on its own paths, plus the field-types
     # phase's, the keys phase's, the admission phase's, the cache
-    # phase's misses and the shell phase's
+    # phase's misses, the residency phase's and the shell phase's
     shell_k = out["shell"]["launches"]
     cache_k = out["cache"]["launches"]
+    res_k = out["residency"]["launches"]
     adm_k = out["admission"]["launches"]
     ft_k = out["field_types"]["launches"]
     keys_k = out["keys"]["launches"]
@@ -4820,6 +5223,7 @@ def main(argv: list[str] | None = None) -> int:
                     + keys_k["gathered_count_and"]
                     + adm_k["gathered_count_and"]
                     + cache_k["gathered_count_and"]
+                    + res_k["gathered_count_and"]
                     + shell_k["gathered_count_and"],
                     max(k2_err, out["k2"]["max_abs_err"]), out["k2"]),
         # K3 and K3-kinds: launches on their own paths plus the ingest
@@ -4830,7 +5234,7 @@ def main(argv: list[str] | None = None) -> int:
                     + out["ingest"]["k3"]["launches"]
                     + ft_k["vm_counts"] + keys_k["vm_counts"]
                     + adm_k["vm_counts"] + cache_k["vm_counts"]
-                    + shell_k["vm_counts"],
+                    + res_k["vm_counts"] + shell_k["vm_counts"],
                     max(k3_err, out["k3"]["max_abs_err"],
                         out["k3_fixed"]["max_abs_err"],
                         out["k3_fixed16"]["max_abs_err"],
@@ -4840,7 +5244,8 @@ def main(argv: list[str] | None = None) -> int:
                     "pilosa_tpu/ops/pallas_kernels.py:489",
                     out["kinds"]["launches"]["vm_counts_kinds"]
                     + out["ingest"]["k3_kinds"]["launches"]
-                    + cache_k["vm_counts_kinds"],
+                    + cache_k["vm_counts_kinds"]
+                    + res_k["vm_counts_kinds"],
                     max(k3k_err, out["k3k"]["max_abs_err"],
                         out["k3k_fixed"]["max_abs_err"],
                         out["k3k_fixed_dfuse"]["max_abs_err"]), out["k3k"]),
@@ -4851,6 +5256,7 @@ def main(argv: list[str] | None = None) -> int:
                     + ft_k["row_counts_masked"]
                     + keys_k["row_counts_masked"]
                     + cache_k["row_counts_masked"]
+                    + res_k["row_counts_masked"]
                     + shell_k["row_counts_masked"],
                     max(k4_err, out["k4"]["max_abs_err"]), out["k4"]),
         kernel_line("masked_matrix_counts",
@@ -4859,17 +5265,18 @@ def main(argv: list[str] | None = None) -> int:
                     out["scans"]["launches"]["masked_matrix_counts"]
                     + ft_k["masked_matrix_counts"]
                     + keys_k["masked_matrix_counts"]
-                    + cache_k["masked_matrix_counts"],
+                    + cache_k["masked_matrix_counts"]
+                    + res_k["masked_matrix_counts"],
                     max(k5_err, out["k5"]["max_abs_err"]), out["k5"]),
         kernel_line("bsi_compare", "pilosa_tpu_torch/ops/csrc/bsi_compare.cu",
                     "pilosa_tpu/ops/pallas_kernels.py:726",
                     out["bsi"]["launches"]["bsi_compare"]
-                    + cache_k["bsi_compare"],
+                    + cache_k["bsi_compare"] + res_k["bsi_compare"],
                     max(k6_err, out["k6"]["max_abs_err"]), out["k6"]),
         kernel_line("count_and", "pilosa_tpu_torch/ops/csrc/count_and.cu",
                     "pilosa_tpu/ops/pallas_kernels.py:194",
                     out["bsi"]["launches"]["count_and"]
-                    + cache_k["count_and"],
+                    + cache_k["count_and"] + res_k["count_and"],
                     max(k1_err, out["k1"]["max_abs_err"]), out["k1"]),
     ]}))
     log(json.dumps({"ok": True, "device": {

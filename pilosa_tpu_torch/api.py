@@ -61,13 +61,14 @@ class API:
               delta: bool = True, cache: bool = True,
               column_attrs: bool = False,
               exclude_row_attrs: bool = False,
-              tenant: str | None = None) -> list:
+              tenant: str | None = None, tiers: bool = True) -> list:
         """Execute PQL -> results.  The deadline is the one the handler
         installed on this thread (``serve.deadline.scope``): an expired
         one raises here, before translation touches anything
         (pilosa_tpu/api.py:119-126), and the executor checks it again at
         its stage boundaries.  ``tenant`` is the request's tenant id
-        (``X-Pilosa-Tenant``), inert with [tenants] off."""
+        (``X-Pilosa-Tenant``), inert with [tenants] off; ``tiers=False``
+        (``?notiers=1``) bypasses the residency manager's host tier."""
         dl = _deadline.current()
         _deadline.check(dl, "query execution")
         if self.max_writes_per_request > 0:
@@ -86,7 +87,7 @@ class API:
                           shards=None if shards is None else list(shards),
                           coalesce=coalesce, containers=containers, vm=vm,
                           delta=delta, cache=cache, deadline=dl,
-                          tenant=tenant)
+                          tenant=tenant, tiers=tiers)
         return self.executor.execute(index, pql, opt=opt)
 
     # ------------------------------------------------------------- schema

@@ -411,6 +411,7 @@ def _server_knobs(cfg: Config) -> dict:
         ragged_enabled=cfg.ragged.enabled,
         ragged_max_tape=cfg.ragged.max_tape,
         ragged_max_leaves=cfg.ragged.max_leaves,
+        ragged_prewarm=cfg.ragged.prewarm,
         vm_enabled=cfg.vm.enabled,
         vm_min_domain=cfg.vm.min_domain,
         vm_max_prefetch=cfg.vm.max_prefetch,
@@ -436,6 +437,14 @@ def _server_knobs(cfg: Config) -> dict:
                                == dten.default_queue
                                else ten.default_queue),
         tenants_quotas=ten.quotas or None,
+        residency_host_budget_bytes=cfg.residency.host_budget_bytes,
+        residency_disk_path=cfg.residency.disk_path,
+        residency_disk_budget_bytes=cfg.residency.disk_budget_bytes,
+        residency_promote_workers=cfg.residency.promote_workers,
+        residency_promote_queue=cfg.residency.promote_queue,
+        residency_promote_wait_ms=cfg.residency.promote_wait_ms,
+        residency_prefetch=cfg.residency.prefetch,
+        residency_prefetch_interval=cfg.residency.prefetch_interval,
         max_writes_per_request=cfg.max_writes_per_request,
         long_query_time=cfg.cluster.long_query_time,
     )

@@ -11,9 +11,8 @@ modules.  ``_coerce`` parses a tenant-quota spec with the port's
 Every key is parsed, kept and printed.  ``cmd.run_server`` applies the
 keys of the layers the port has: ``data-dir``, ``bind``, ``verbose``,
 ``log-path``, ``max-writes-per-request``, ``[cluster] long-query-time``,
-``[coalescer]``, ``[ragged]`` (but ``prewarm``), ``[vm]``,
-``[admission]``, ``[cache]``, ``[ingest]``, ``[containers]`` and
-``[tenants]`` (whose ``residency-share`` is kept, not enforced).  It
+``[coalescer]``, ``[ragged]``, ``[vm]``, ``[admission]``, ``[cache]``,
+``[ingest]``, ``[containers]``, ``[tenants]`` and ``[residency]``.  It
 logs, and does not apply, a key of a layer still to be ported
 (``UNAPPLIED``), each named here with the ROADMAP Queue 1 item that
 will apply it:
@@ -22,8 +21,7 @@ will apply it:
   ``max-wal-files``;
 - item 7 (observability): ``[metric]``, ``[tracing]``, ``[profile]``,
   ``[observe]`` and ``[cost]``;
-- item 8 (the runtime device layers): ``[residency]``,
-  ``[faultinject]`` and ``[ragged] prewarm``;
+- item 8 (the runtime device layers' second half): ``[faultinject]``;
 - item 10 (the cluster): ``name``, ``heartbeat-interval``, ``[cluster]``
   other than ``long-query-time``, ``[anti-entropy]``, ``[replication]``,
   ``[rebalance]`` and ``[tls]``;
@@ -63,9 +61,7 @@ UNAPPLIED: dict[tuple[str | None, str], str] = {
     ("profile", "*"): "7",
     ("observe", "*"): "7",
     ("cost", "*"): "7",
-    ("residency", "*"): "8",
     ("faultinject", "*"): "8",
-    ("ragged", "prewarm"): "8",
     ("mesh", "*"): "11",
 }
 

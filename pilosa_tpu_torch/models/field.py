@@ -13,7 +13,7 @@ set that the fused executor reads:
   ``n`` the all-zero absent container, or, with [containers] kinds on
   and any array or run container in the row, three compact kind pools.
 
-Both hold BASE content and are cached in one plain per-field dict keyed
+Both hold BASE content and are cached in one per-field dict keyed
 on the fragments' ``(_uid, _gen)`` (``_frag_base_gen``): a write that
 lands in a fragment's delta plane (pilosa_tpu_torch.ingest) leaves them
 warm, and only a base write or a compaction makes them miss.  The pending
@@ -27,9 +27,25 @@ so that a write to another row keeps them valid:
   container leaves, operands of the VM's ``dfuse`` tapes.
 
 The TopN scan's operand, ``device_matrix_stack`` (every row of a shard
-set in one matrix), has a cache of its own with the reference's size cap;
-its fragments merge their deltas first, and it keys on the effective
-``(_uid, _gen, _delta_seq)`` (``_frag_gen``).
+set in one matrix), has a cache of its own; its fragments merge their
+deltas first, and it keys on the effective ``(_uid, _gen, _delta_seq)``
+(``_frag_gen``).
+
+Residency (pilosa_tpu/models/field.py:420-1241): every entry of both
+caches is admitted to the process-wide manager (runtime/residency.py)
+under one HBM byte budget, with the reference's ``kind`` and entry caps
+(64 entries in the stack cache, 8 matrix stacks, and no entry over 512
+MiB unless the operator sized the budget).  The dense stacks, container
+leaves and matrix stacks register their host bytes as a twin with a
+promote closure, so that an eviction demotes them to the host tier; a
+miss then consults the tier (``_tier_consult``) before rebuilding from
+the fragments, and a promotion that misses its wait answers from the
+host bytes, uploaded for that one query.  The delta overlays are tracked
+without a twin.  Every access ticks the prefetcher's statistics
+(``_note_access``), and bulk imports queue a background prewarm of the
+imported rows' stacks (runtime/prewarm.py).  Left out with the flight
+recorder (ROADMAP Queue 1 item 7): ``_note_tier``'s hbm / promoted /
+fallback / cold stamps; with the cluster: ``drop_shard_stacks``.
 
 ``int`` fields (pilosa_tpu/models/field.py:1279-1562, 1700-1780) keep
 their values as bit planes in the BSI view ``bsig_<field>``: writes
@@ -54,6 +70,7 @@ a shard set, on the host, into one cached device stack."""
 from __future__ import annotations
 
 import datetime as _dt
+import functools
 import json
 import os
 import re
@@ -63,6 +80,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from pilosa_tpu_torch import observe as _observe
 from pilosa_tpu_torch.models.attrs import AttrStore
 from pilosa_tpu_torch.models.timequantum import (TimeQuantum, views_by_time,
                                                  views_by_time_range)
@@ -71,6 +89,8 @@ from pilosa_tpu_torch.ops import bitmap as bm
 from pilosa_tpu_torch.ops import bsi as bsi_ops
 from pilosa_tpu_torch.ops import containers as ct
 from pilosa_tpu_torch.ops import kindpools as kp
+from pilosa_tpu_torch.runtime import prewarm, residency
+from pilosa_tpu_torch.serve import deadline as _deadline
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
 
@@ -245,8 +265,12 @@ class FieldOptions:
 
 
 class Field:
-    #: device stacks and pools kept per field (oldest evicted first)
-    DEVICE_CACHE_ENTRIES = 64
+    #: largest stack, pool pair or plane stack kept in the device cache
+    #: (bytes); a larger one serves its query alone, unless the operator
+    #: sized the budget (``_entry_cap``; pilosa_tpu/models/field.py:231)
+    ROW_STACK_CACHE_BYTES = 512 << 20
+    #: the same for matrix stacks (pilosa_tpu/models/field.py:1150)
+    MATRIX_STACK_CACHE_BYTES = 512 << 20
 
     def __init__(self, path: str | None, index: str, name: str,
                  options: FieldOptions, device: torch.device):
@@ -258,10 +282,16 @@ class Field:
         self.device = device
         self.views: dict[str, View] = {}
         self._shards: set[int] = set()
-        # key -> (gens, value): device row stacks and container leaves
+        # key -> (gens, value): row stacks, container leaves, delta
+        # overlays, time-range and plane stacks, all tracked by the
+        # process-wide residency manager
         self._device_cache: dict = {}
         # ("matrix", shards) -> device_matrix_stack entry
         self._matrix_stack_cache: dict = {}
+        # weak reference to the owning Index (set by Index._adopt): the
+        # prewarm worker needs the index's shard set
+        self._index_ref = None
+        self.closed = False
         # (view names, their parsed times): time_view_times' memo
         self._view_times_memo = None
         self._lock = threading.RLock()
@@ -494,6 +524,14 @@ class Field:
                 done.add(int(shard))
         finally:
             self._note_shards(done)
+        if not clear:
+            # warm the fused path's stacks of the imported rows in the
+            # background, hottest first (pilosa_tpu/models/field.py:
+            # 1680-1698)
+            uniq, cnt = np.unique(np.asarray(rows, dtype=np.int64),
+                                  return_counts=True)
+            self._prewarm([int(r) for r in uniq[np.argsort(
+                -cnt, kind="stable")][:prewarm.ROW_CAP]])
 
     def import_roaring(self, shard: int, data: bytes, clear: bool = False,
                        view: str = VIEW_STANDARD) -> None:
@@ -503,20 +541,115 @@ class Field:
 
     # ------------------------------------------------------- device forms
 
-    def _cached(self, key, gens, build):
-        """The device cache: hit when the stored tokens equal ``gens``,
-        else build, store (evicting the oldest past the cap), return."""
+    @staticmethod
+    def _touch(cache: dict, key) -> None:
+        residency.manager().touch(cache, key)
+
+    @staticmethod
+    def _note_access(cache: dict, key) -> None:
+        """Tick the prefetcher's access-statistics table
+        (observe.access_stats) for one entry."""
+        _observe.note_access((id(cache), key))
+
+    def _tier_consult(self, cache: dict, key, gens, valid):
+        """Host-tier consult after an owner-cache miss
+        (pilosa_tpu/models/field.py:504-534): enqueue the async promotion
+        (single-flight per key), wait a bounded slice of the request's
+        deadline, and return ``("dev", entry)`` when the promoted entry
+        landed in time (``valid`` re-checks it) -- else ``("host",
+        value)``, the host-bytes route: the host bytes uploaded for this
+        one query, uncached, read by the same kernels (the promotion
+        keeps running for the next query).  None on a true cold miss: the
+        caller assembles from fragment state."""
+        mgr = residency.manager()
+        ent = mgr.host_lookup(cache, key, gens)
+        if ent is None:
+            return None
+        fl = residency.promoter().submit(ent)
+        if fl is not None:
+            fl.event.wait(residency.promote_wait_s(_deadline.current()))
         with self._lock:
-            hit = self._device_cache.get(key)
+            hit = cache.get(key)
+            if hit is not None and valid(hit):
+                self._touch(cache, key)
+                return ("dev", hit)
+        mgr.note_fallback()
+        return ("host", ent.host_value())
+
+    def _lookup(self, cache: dict, key, gens):
+        """A (gens, value) entry's value: an HBM hit, the host tier's
+        promoted entry or host-bytes value, or None on a cold miss."""
+        self._note_access(cache, key)
+        with self._lock:
+            hit = cache.get(key)
             if hit is not None and hit[0] == gens:
+                self._touch(cache, key)
                 return hit[1]
-        value = build()
+        tiered = self._tier_consult(cache, key, gens,
+                                    lambda h: h[0] == gens)
+        if tiered is None:
+            return None
+        return tiered[1][1] if tiered[0] == "dev" else tiered[1]
+
+    @staticmethod
+    def _entry_cap(fixed_cap: int) -> int:
+        """Per-entry cacheability cap (pilosa_tpu/models/field.py:
+        638-652): the fixed default, or a quarter of the residency
+        budget when the OPERATOR sized the budget
+        (``PILOSA_TPU_DEVICE_BUDGET_BYTES``) for a bigger working set.  A
+        probed default budget never relaxes the cap: a giant one-off
+        stack stays uncacheable rather than evict the warm cache."""
+        mgr = residency.manager()
+        if not mgr.operator_sized:
+            return fixed_cap
+        return max(fixed_cap, mgr.budget // 4)
+
+    def _evict_and_insert(self, cache: dict, key, entry, entry_bytes: int,
+                          max_entries: int, kind: str = "dense",
+                          token=None, host=None, promote=None,
+                          fallback=None, kind_detail=None) -> None:
+        """Insert under the entry cap; BYTE budgeting is global -- the
+        process-wide residency manager sees every owner's device caches
+        and evicts across all of them (pilosa_tpu/models/field.py:
+        1077-1111).  The manager may concurrently pop entries from this
+        dict under its own lock, so every removal here tolerates a
+        vanished key, and the admit happens inside self._lock so the
+        inserted entry can't be popped before it is tracked.
+        ``token``+``host``+``promote`` opt the entry into the host tier;
+        cap evictions DEMOTE too."""
+        mgr = residency.manager()
         with self._lock:
-            self._device_cache.pop(key, None)
-            while len(self._device_cache) >= self.DEVICE_CACHE_ENTRIES:
-                self._device_cache.pop(next(iter(self._device_cache)))
-            self._device_cache[key] = (gens, value)
-        return value
+            if cache.pop(key, None) is not None:
+                mgr.forget(cache, key)
+            while len(cache) >= max_entries:
+                try:
+                    k = next(iter(cache))
+                except StopIteration:
+                    break
+                cache.pop(k, None)
+                mgr.demote(cache, k)
+            cache[key] = entry
+            mgr.admit(cache, key, entry_bytes, kind=kind, token=token,
+                      host=host, promote=promote, fallback=fallback,
+                      kind_detail=kind_detail)
+
+    def _place_and_cache_stack(self, key, gens, stack: np.ndarray
+                               ) -> torch.Tensor:
+        """Upload a host stack and cache it with its host twin, unless
+        it is over the entry cap (then it serves this query alone)."""
+        dev = bm.to_tensor(stack, self.device)
+        if stack.nbytes > self._entry_cap(self.ROW_STACK_CACHE_BYTES):
+            return dev  # uncacheable; never evict the warm cache for it
+        upload = functools.partial(bm.to_tensor, device=self.device)
+
+        def promote(arr, _g=gens):
+            return (_g, upload(arr))
+
+        self._evict_and_insert(self._device_cache, key, (gens, dev),
+                               stack.nbytes, max_entries=64, token=gens,
+                               host=stack, promote=promote,
+                               fallback=upload)
+        return dev
 
     def device_row_stack(self, row_id: int, shards: tuple[int, ...]
                          ) -> torch.Tensor:
@@ -527,19 +660,35 @@ class Field:
         (``device_delta_stacks``)."""
         frags = [self.fragment(s) for s in shards]
         gens = tuple(_frag_base_gen(fr) for fr in frags)
+        key = ("row", row_id, shards)
+        got = self._lookup(self._device_cache, key, gens)
+        if got is not None:
+            return got
+        stack = np.zeros((len(shards), bm.n_words(SHARD_WIDTH)),
+                         dtype=np.uint32)
+        for i, frag in enumerate(frags):
+            if frag is not None:
+                with frag._lock:
+                    arr = frag._rows.get(row_id)
+                    if arr is not None:
+                        stack[i] = arr
+        return self._place_and_cache_stack(key, gens, stack)
 
-        def build() -> torch.Tensor:
-            stack = np.zeros((len(shards), bm.n_words(SHARD_WIDTH)),
-                             dtype=np.uint32)
-            for i, frag in enumerate(frags):
-                if frag is not None:
-                    with frag._lock:
-                        arr = frag._rows.get(row_id)
-                        if arr is not None:
-                            stack[i] = arr
-            return bm.to_tensor(stack, self.device)
-
-        return self._cached(("row", row_id, shards), gens, build)
+    @staticmethod
+    def _leaf_on(device: torch.device, d: dict, payload
+                 ) -> ct.ContainerLeaf:
+        """A ContainerLeaf of the directory ``d`` over the host pools
+        ``payload`` uploaded to ``device``: the cold build's, the
+        promotion's and the host-bytes route's one constructor.  A kinds
+        payload is the (bitmap, array, card, run) pool tuple."""
+        if isinstance(payload, tuple):
+            pool, apool, acard, rpool = payload
+            return ct.ContainerLeaf(
+                **d, pool=bm.to_tensor(pool, device),
+                apool=torch.from_numpy(apool.view(np.int16)).to(device),
+                acard=torch.from_numpy(acard).to(device),
+                rpool=torch.from_numpy(rpool.view(np.int16)).to(device))
+        return ct.ContainerLeaf(**d, pool=bm.to_tensor(payload, device))
 
     def device_container_leaf(self, row_id: int, shards: tuple[int, ...]):
         """One standard-view row across ``shards`` in pooled compressed
@@ -549,7 +698,8 @@ class Field:
         kinds on, each container takes its cheapest kind and a row with
         any array or run container splits into the three kind pools
         (``_build_kinds_leaf``); an all-bitmap row keeps the one-pool
-        layout."""
+        layout.  Tracked as ``"compressed"`` with its host pools as the
+        twin."""
         frags = [self.fragment(s) for s in shards]
         # the threshold and the kind knobs join the token: a cached leaf
         # froze each fragment's sparse-vs-hot verdict and its layout
@@ -557,49 +707,66 @@ class Field:
         kinds_on = bool(cfg.kinds)
         gens = (cfg.threshold, kinds_on, cfg.array_max, cfg.run_cap,
                 *(_frag_base_gen(fr) for fr in frags))
+        key = ("cont", row_id, shards)
+        got = self._lookup(self._device_cache, key, gens)
+        if got is not None:
+            return got
+        entries: list = []
+        starts: list[int] = []
+        kinds: list = []  # per shard: kind bytes, or None (hot row)
+        blocks_list: list[np.ndarray] = []
+        n = 0
+        for fr in frags:
+            starts.append(n)
+            if fr is None:
+                entries.append(np.empty(0, dtype=np.int64))
+                kinds.append(np.empty(0, dtype=np.uint8))
+                continue
+            rc = (fr.row_container_kinds(row_id) if kinds_on
+                  else fr.row_containers(row_id))
+            if rc is None:
+                entries.append(None)
+                kinds.append(None)
+                continue
+            entries.append(rc[0])
+            kinds.append(rc[3] if kinds_on else None)
+            if len(rc[0]):
+                blocks_list.append(rc[1])
+                n += len(rc[0])
+        d, payload, kd = None, None, None
+        if kinds_on:
+            flat_kinds = np.concatenate(
+                [np.empty(0, dtype=np.uint8)]
+                + [k for k in kinds if k is not None])
+            if bool((flat_kinds != 1).any()):
+                d, payload = self._build_kinds_leaf(
+                    shards, entries, starts, kinds, blocks_list, flat_kinds)
+                kd = {"array": int(payload[1].nbytes + payload[2].nbytes),
+                      "run": int(payload[3].nbytes)}
+        if d is None:
+            payload = ct.build_pool(blocks_list, n)
+            d = dict(shards=shards, entries=entries, starts=starts, n=n,
+                     nbytes=payload.nbytes)
+        leaf = self._leaf_on(self.device, d, payload)
+        if leaf.nbytes <= self._entry_cap(self.ROW_STACK_CACHE_BYTES):
+            on = functools.partial(self._leaf_on, self.device, d)
 
-        def build():
-            entries: list = []
-            starts: list[int] = []
-            kinds: list = []  # per shard: kind bytes, or None (hot row)
-            blocks_list: list[np.ndarray] = []
-            n = 0
-            for fr in frags:
-                starts.append(n)
-                if fr is None:
-                    entries.append(np.empty(0, dtype=np.int64))
-                    kinds.append(np.empty(0, dtype=np.uint8))
-                    continue
-                rc = (fr.row_container_kinds(row_id) if kinds_on
-                      else fr.row_containers(row_id))
-                if rc is None:
-                    entries.append(None)
-                    kinds.append(None)
-                    continue
-                entries.append(rc[0])
-                kinds.append(rc[3] if kinds_on else None)
-                if len(rc[0]):
-                    blocks_list.append(rc[1])
-                    n += len(rc[0])
-            if kinds_on:
-                flat_kinds = np.concatenate(
-                    [np.empty(0, dtype=np.uint8)]
-                    + [k for k in kinds if k is not None])
-                if bool((flat_kinds != 1).any()):
-                    return self._build_kinds_leaf(shards, entries, starts,
-                                                  kinds, blocks_list,
-                                                  flat_kinds)
-            pool = ct.build_pool(blocks_list, n)
-            return ct.ContainerLeaf(shards, entries, starts,
-                                    bm.to_tensor(pool, self.device), n,
-                                    pool.nbytes)
+            def promote(p, _g=gens):
+                return (_g, on(p))
 
-        return self._cached(("cont", row_id, shards), gens, build)
+            self._evict_and_insert(self._device_cache, key, (gens, leaf),
+                                   leaf.nbytes, max_entries=64,
+                                   kind="compressed", token=gens,
+                                   host=payload, promote=promote,
+                                   fallback=on, kind_detail=kd)
+        return leaf
 
-    def _build_kinds_leaf(self, shards, entries, starts, kinds, blocks_list,
-                          flat_kinds):
+    @staticmethod
+    def _build_kinds_leaf(shards, entries, starts, kinds, blocks_list,
+                          flat_kinds) -> tuple[dict, tuple]:
         """Split a mixed-kind directory into the per-kind compact pools
-        (ops/kindpools.split_pools) and assemble the kinds leaf
+        (ops/kindpools.split_pools): the kinds leaf's directory and its
+        host (bitmap, array, card, run) pools
         (pilosa_tpu/models/field.py:986).  Every pool keeps at least one
         canonical empty tail row -- the absent-container gather target --
         and pads its row count to pow2, as the bitmap pool does."""
@@ -626,14 +793,25 @@ class Field:
         rpool[:, 0::2] = 1  # (1, 0): the canonical invalid pair
         rpool[:rn] = rpool_t
         nbytes = pool.nbytes + apool.nbytes + acard.nbytes + rpool.nbytes
-        dev = self.device
-        return ct.ContainerLeaf(
-            shards, entries, starts, bm.to_tensor(pool, dev), bn, nbytes,
-            kinds=kinds, slots=slots,
-            apool=torch.from_numpy(apool.view(np.int16)).to(dev),
-            acard=torch.from_numpy(acard).to(dev),
-            rpool=torch.from_numpy(rpool.view(np.int16)).to(dev),
-            an=an, rn=rn)
+        d = dict(shards=shards, entries=entries, starts=starts, n=bn,
+                 nbytes=nbytes, kinds=kinds, slots=slots, an=an, rn=rn)
+        return d, (pool, apool, acard, rpool)
+
+    def _cached_untiered(self, key, toks, build, kind: str = "dense"):
+        """A form with no host twin (the delta overlays,
+        pilosa_tpu/models/field.py:678-825): a hit on ``toks``, else
+        ``build() -> (value, nbytes)`` tracked under the entry cap."""
+        cache = self._device_cache
+        with self._lock:
+            hit = cache.get(key)
+            if hit is not None and hit[0] == toks:
+                self._touch(cache, key)
+                return hit[1]
+        value, nbytes = build()
+        if nbytes <= self._entry_cap(self.ROW_STACK_CACHE_BYTES):
+            self._evict_and_insert(cache, key, (toks, value), nbytes,
+                                   max_entries=64, kind=kind)
+        return value
 
     def device_delta_stacks(self, row_id: int, shards: tuple[int, ...]):
         """The pending overlays of one standard-view row across
@@ -658,9 +836,9 @@ class Field:
                     if w is not None:
                         stack[i] = w
                 out.append(bm.to_tensor(stack, self.device))
-            return tuple(out)
+            return tuple(out), 2 * len(shards) * n_words * 4
 
-        return self._cached(("delta", row_id, shards), toks, build)
+        return self._cached_untiered(("delta", row_id, shards), toks, build)
 
     def device_delta_container_leaves(self, row_id: int,
                                       shards: tuple[int, ...]):
@@ -669,7 +847,7 @@ class Field:
         -- each shard's non-empty overlay containers pooled -- the
         operands of the VM's ``dfuse`` tapes, or None when no fragment
         has an overlay for the row (pilosa_tpu/models/field.py:739-825).
-        Cached like ``device_delta_stacks``."""
+        Cached like ``device_delta_stacks``, as ``"compressed"``."""
         frags = [self.fragment(s) for s in shards]
         toks = _delta_tokens(frags, row_id)
         if toks is None:
@@ -699,9 +877,10 @@ class Field:
                 pair.append(ct.ContainerLeaf(
                     shards, entries, starts, bm.to_tensor(pool, self.device),
                     n, pool.nbytes))
-            return tuple(pair)
+            return tuple(pair), pair[0].nbytes + pair[1].nbytes
 
-        return self._cached(("dcont", row_id, shards), toks, build)
+        return self._cached_untiered(("dcont", row_id, shards), toks, build,
+                                     kind="compressed")
 
     def flush_deltas(self, shards=None) -> int:
         """Merge the pending deltas of this field's fragments (of
@@ -717,12 +896,6 @@ class Field:
                     merged += frag.flush_delta()
         return merged
 
-    #: largest matrix stack kept in the cache (bytes); a larger one is
-    #: rebuilt per query (pilosa_tpu/models/field.py:1150)
-    MATRIX_STACK_CACHE_BYTES = 512 << 20
-    #: matrix stacks kept per field (oldest evicted first)
-    MATRIX_STACK_ENTRIES = 8
-
     def device_matrix_stack(self, shards: tuple[int, ...]):
         """The standard-view row matrices of ``shards`` concatenated
         along the row axis, in shard order, for the fused TopN scan
@@ -732,8 +905,9 @@ class Field:
         position of row i's shard in ``shards`` and ``gens[i]`` that
         shard's fragment token.  One device, so no pad rows.  With every
         fragment empty it returns ``(gens, [], None, None, None)``,
-        uncached.  Cached per shard tuple, except a stack larger than
-        ``MATRIX_STACK_CACHE_BYTES``."""
+        uncached.  Cached per shard tuple with its host halves as the
+        twin, except a stack over the entry cap
+        (``MATRIX_STACK_CACHE_BYTES``)."""
         view = self.view(VIEW_STANDARD)
         frags = [None if view is None else view.fragment(s) for s in shards]
         gens = []
@@ -748,29 +922,40 @@ class Field:
             if len(ids):
                 parts.append((i, ids, mat))
         gens = tuple(gens)
+        cache = self._matrix_stack_cache
         key = ("matrix", shards)
+        self._note_access(cache, key)
         with self._lock:
-            hit = self._matrix_stack_cache.get(key)
+            hit = cache.get(key)
             if hit is not None and hit[0] == gens:
+                self._touch(cache, key)
                 return hit
+        tiered = self._tier_consult(cache, key, gens,
+                                    lambda h: h[0] == gens)
+        if tiered is not None:
+            return tiered[1]
         if not parts:
             return (gens, np.empty(0, dtype=np.int64), None, None, None)
         row_ids = np.concatenate([ids for _, ids, _ in parts])
         shard_pos = np.concatenate(
             [np.full(len(ids), pos, dtype=np.int32) for pos, ids, _ in parts])
         big = np.concatenate([m for _, _, m in parts], axis=0)
-        entry = (gens, row_ids, shard_pos,
-                 torch.from_numpy(shard_pos).to(self.device),
-                 bm.to_tensor(big, self.device))
-        if big.nbytes > self.MATRIX_STACK_CACHE_BYTES:
+        on = functools.partial(self._matrix_on, self.device, gens)
+        entry = on((row_ids, shard_pos, big))
+        if big.nbytes > self._entry_cap(self.MATRIX_STACK_CACHE_BYTES):
             return entry  # uncacheable; the warm entries stay
-        with self._lock:
-            self._matrix_stack_cache.pop(key, None)
-            while len(self._matrix_stack_cache) >= self.MATRIX_STACK_ENTRIES:
-                self._matrix_stack_cache.pop(
-                    next(iter(self._matrix_stack_cache)))
-            self._matrix_stack_cache[key] = entry
+        self._evict_and_insert(cache, key, entry, big.nbytes, max_entries=8,
+                               token=gens, host=(row_ids, shard_pos, big),
+                               promote=on, fallback=on)
         return entry
+
+    @staticmethod
+    def _matrix_on(device: torch.device, gens, payload) -> tuple:
+        """A matrix-stack entry over the host halves ``payload`` uploaded
+        to ``device``."""
+        ids, pos, big = payload
+        return (gens, ids, pos, torch.from_numpy(pos).to(device),
+                bm.to_tensor(big, device))
 
     # ------------------------------------------------------- time views
 
@@ -826,25 +1011,24 @@ class Field:
         grid = [[None if v is None else v.fragment(s) for v in views]
                 for s in shards]
         gens = tuple(tuple(_frag_gen(fr) for fr in frags) for frags in grid)
-
-        def build() -> torch.Tensor:
-            stack = np.zeros((len(shards), bm.n_words(SHARD_WIDTH)),
-                             dtype=np.uint32)
-            for i, frags in enumerate(grid):
-                for fr in frags:
-                    if fr is None:
-                        continue
-                    with fr._lock:
-                        d = fr._delta
-                        arr = (fr.row(row_id) if d is not None
-                               and d.row_touched(row_id)
-                               else fr._rows.get(row_id))
-                        if arr is not None:
-                            np.bitwise_or(stack[i], arr, out=stack[i])
-            return bm.to_tensor(stack, self.device)
-
-        return self._cached(("time", row_id, shards, view_names), gens,
-                            build)
+        key = ("time", row_id, shards, view_names)
+        got = self._lookup(self._device_cache, key, gens)
+        if got is not None:
+            return got
+        stack = np.zeros((len(shards), bm.n_words(SHARD_WIDTH)),
+                         dtype=np.uint32)
+        for i, frags in enumerate(grid):
+            for fr in frags:
+                if fr is None:
+                    continue
+                with fr._lock:
+                    d = fr._delta
+                    arr = (fr.row(row_id) if d is not None
+                           and d.row_touched(row_id)
+                           else fr._rows.get(row_id))
+                    if arr is not None:
+                        np.bitwise_or(stack[i], arr, out=stack[i])
+        return self._place_and_cache_stack(key, gens, stack)
 
     # ------------------------------------------------------------ BSI
 
@@ -1050,22 +1234,22 @@ class Field:
         view = self.view(self.bsi_view_name)
         frags = [None if view is None else view.fragment(s) for s in shards]
         gens = tuple(_frag_gen(fr) for fr in frags)
+        key = ("planes", shards, depth)
+        got = self._lookup(self._device_cache, key, gens)
+        if got is not None:
+            return got
         n_planes = bsi_ops.OFFSET_PLANE + depth
-
-        def build() -> torch.Tensor:
-            stack = np.zeros((len(shards), n_planes,
-                              bm.n_words(SHARD_WIDTH)), dtype=np.uint32)
-            for i, frag in enumerate(frags):
-                if frag is None:
-                    continue
-                with frag._lock:
-                    for p in range(n_planes):
-                        arr = frag._rows.get(p)
-                        if arr is not None:
-                            stack[i, p] = arr
-            return bm.to_tensor(stack, self.device)
-
-        return self._cached(("planes", shards, depth), gens, build)
+        stack = np.zeros((len(shards), n_planes, bm.n_words(SHARD_WIDTH)),
+                         dtype=np.uint32)
+        for i, frag in enumerate(frags):
+            if frag is None:
+                continue
+            with frag._lock:
+                for p in range(n_planes):
+                    arr = frag._rows.get(p)
+                    if arr is not None:
+                        stack[i, p] = arr
+        return self._place_and_cache_stack(key, gens, stack)
 
     def device_range_stack(self, op: str, value, shards: tuple[int, ...]
                            ) -> torch.Tensor:
@@ -1154,26 +1338,38 @@ class Field:
                 done.add(int(shard))
         finally:
             self._note_shards(done)
+        self._prewarm(())  # an int field warms its BSI plane stack
+
+    def _prewarm(self, rows) -> None:
+        """Enqueue a background stack prewarm for this field (no-op
+        without an owning index or with PILOSA_TPU_PREWARM=0)."""
+        idx = self._index_ref() if self._index_ref is not None else None
+        if idx is not None:
+            prewarm.enqueue(idx, self, rows)
 
     # ---------------------------------------------------------- lifecycle
 
     def close(self) -> None:
         """Close every fragment and let go of every device form this
-        field built: its own caches, and the coalescer's and the
-        container engine's memo entries over its container leaves."""
+        field built: its own caches with their residency accounting
+        (pilosa_tpu/models/field.py:1796-1813), and the coalescer's and
+        the container engine's memo entries over its container leaves."""
+        self.closed = True
         for view in self.views.values():
             view.close()
         self.row_attrs.close()
         if self._translate_store is not None:
             self._translate_store.close()
+        mgr = residency.manager()
         with self._lock:
             uids = set()
-            for _gens, value in self._device_cache.values():
+            for _gens, value in list(self._device_cache.values()):
                 for leaf in (value if isinstance(value, tuple) else (value,)):
                     if isinstance(leaf, ct.ContainerLeaf):
                         uids.add(leaf.uid)
-            self._device_cache.clear()
-            self._matrix_stack_cache.clear()
+            for cache in (self._device_cache, self._matrix_stack_cache):
+                mgr.forget_owner(cache)
+                cache.clear()
         ct.forget_leaves(uids)
 
     def snapshot(self) -> None:

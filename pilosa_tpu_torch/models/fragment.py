@@ -11,7 +11,11 @@ The fragment keeps the TopN rank cache (models/cache.TopNCache): exact
 row counts stamped with its generation, loaded from the ``.cache`` file
 at a WAL-clean open and saved at snapshot, and its whole row matrix on
 its device (``device_matrix``), cached per generation, for the TopN and
-GroupBy scans.
+GroupBy scans.  The row matrix and the BSI planes live in
+``_device_cache`` and are admitted to the process-wide residency manager
+(runtime/residency.py) as the reference admits them: the matrix without
+a host twin, the planes with theirs (a demoted plane stack is uploaded
+again, inline, from its host bytes); ``close`` forgets both.
 
 A fragment of an int field's BSI view (``bsig_<field>``) holds the bit
 planes of its columns' base-relative values as rows 0 (exists), 1 (sign)
@@ -48,6 +52,7 @@ content) or ``(_uid, _gen, _delta_seq)`` (effective content).
 
 from __future__ import annotations
 
+import functools
 import itertools
 import logging
 import os
@@ -58,6 +63,7 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch import ingest
+from pilosa_tpu_torch import observe as _observe
 from pilosa_tpu_torch.ingest import compactor
 from pilosa_tpu_torch.ingest.deltaplane import DeltaPlane
 from pilosa_tpu_torch.models.cache import CACHE_TYPE_NONE, TopNCache
@@ -65,6 +71,7 @@ from pilosa_tpu_torch.ops import bitmap as bm
 from pilosa_tpu_torch.ops import bsi as bsi_ops
 from pilosa_tpu_torch.ops import containers as ct
 from pilosa_tpu_torch.ops import kindpools as kp
+from pilosa_tpu_torch.runtime import residency
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 from pilosa_tpu_torch.storage import roaring as rcodec
 
@@ -82,6 +89,12 @@ _WAL_BULK_HDR = struct.Struct("<BQQ")  # op, n_set, n_clear
 _WAL_ROARING_HDR = struct.Struct("<BQQ")  # op, blob_len, clear-flag
 
 _log = logging.getLogger("pilosa_tpu_torch.fragment")
+
+
+def _planes_on(device: torch.device, gen: int, P: np.ndarray) -> tuple:
+    """A plane-stack entry of one generation: the host planes uploaded
+    (the tier's promotion closure, pilosa_tpu/models/fragment.py:91-101)."""
+    return (gen, bm.to_tensor(P, device))
 
 
 class Fragment:
@@ -119,10 +132,11 @@ class Fragment:
         self._stack_cache: tuple[int, np.ndarray, np.ndarray] | None = None
         # row -> (gen, keys, blocks, bits): the compressed directory
         self._container_cache: dict = {}
-        # (gen, row_ids, int32 [R, words] tensor on the device)
-        self._matrix_cache: tuple | None = None
-        # (gen, depth, int32 [2 + depth, words] BSI planes on the device)
-        self._planes_cache: tuple | None = None
+        # the device forms, tracked by the process-wide residency
+        # manager (pilosa_tpu/models/fragment.py:152): "matrix" -> (gen,
+        # row_ids, int32 [R, words] tensor), ("planes", depth) -> (gen,
+        # int32 [2 + depth, words] BSI planes)
+        self._device_cache: dict = {}
         self.topn_cache = TopNCache(cache_type, cache_size)
         self._wal = None
         self._op_n = 0
@@ -278,8 +292,11 @@ class Fragment:
                 self._wal.close()
                 self._wal = None
             # the host and device copies go with the fragment
-            self._stack_cache = self._matrix_cache = None
-            self._planes_cache = None
+            self._stack_cache = None
+            # release the residency accounting with the device copies
+            # (pilosa_tpu/models/fragment.py:442-447)
+            residency.manager().forget_owner(self._device_cache)
+            self._device_cache.clear()
             self._container_cache.clear()
             # the pending bits are in the WAL (a reopen replays them into
             # the base rows): only the compactor registration goes
@@ -880,12 +897,16 @@ class Fragment:
         pending delta merges first."""
         with self._lock:
             self._flush_delta_locked()
-            hit = self._matrix_cache
+            key = "matrix"
+            hit = self._device_cache.get(key)
             if hit is not None and hit[0] == self._gen:
+                residency.manager().touch(self._device_cache, key)
                 return hit[1], hit[2]
             ids, matrix = self._stacked()
             dev = bm.to_tensor(matrix, self.device)
-            self._matrix_cache = (self._gen, ids, dev)
+            self._device_cache[key] = (self._gen, ids, dev)
+            residency.manager().admit(self._device_cache, key,
+                                      matrix.nbytes)
             return ids, dev
 
     def device_matrix_with_gen(self) -> tuple[int, np.ndarray, torch.Tensor]:
@@ -902,18 +923,35 @@ class Fragment:
         device (rows 0..depth+1, absent rows zero), cached per
         generation and depth."""
         with self._lock:
-            hit = self._planes_cache
-            if hit is not None and hit[0] == self._gen and hit[1] == depth:
-                return hit[2]
+            key = ("planes", depth)
+            cache = self._device_cache
+            _observe.note_access((id(cache), key))
+            hit = cache.get(key)
+            if hit is not None and hit[0] == self._gen:
+                residency.manager().touch(cache, key)
+                return hit[1]
+            mgr = residency.manager()
+            promote = functools.partial(_planes_on, self.device, self._gen)
+            ent = mgr.host_lookup(cache, key, self._gen)
+            if ent is not None:
+                # demoted but warm: one upload, inline under the fragment
+                # lock as in the reference, no plane re-assembly
+                value = ent.promote(ent.payload)
+                cache[key] = value
+                mgr.admit(cache, key, ent.nbytes, token=self._gen,
+                          host=ent.payload, promote=ent.promote)
+                return value[1]
             P = np.zeros((bsi_ops.OFFSET_PLANE + depth, self.n_words),
                          dtype=np.uint32)
             for i in range(P.shape[0]):
                 arr = self._rows.get(i)
                 if arr is not None:
                     P[i] = arr
-            dev = bm.to_tensor(P, self.device)
-            self._planes_cache = (self._gen, depth, dev)
-            return dev
+            value = promote(P)
+            cache[key] = value
+            mgr.admit(cache, key, P.nbytes, token=self._gen, host=P,
+                      promote=promote)
+            return value[1]
 
     def set_value(self, col: int, depth: int, value: int) -> bool:
         """Write a base-relative signed value as bit planes, one WAL

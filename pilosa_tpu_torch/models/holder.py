@@ -4,7 +4,10 @@ Port of pilosa_tpu/models/holder.py: opens every index directory under
 the data path, holds an exclusive flock on the directory for its
 lifetime, keeps the node id in ``.id``, and describes the schema.  The
 holder's device (``cuda`` unless the caller asks for ``cpu``) is where
-every field places its row stacks and container pools.
+every field places its row stacks and container pools.  Opening a
+directory queues a background prewarm of every field's stacks
+(runtime/prewarm.py); ``close`` drops the holder's queued prewarm jobs
+and waits out a running one first.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 from pilosa_tpu_torch import device as devmod
 from pilosa_tpu_torch.models.field import FieldOptions
 from pilosa_tpu_torch.models.index import Index, IndexOptions
+from pilosa_tpu_torch.runtime import prewarm
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
 
@@ -50,9 +54,19 @@ class Holder:
                 if (os.path.isdir(idir)
                         and os.path.exists(os.path.join(idir, ".meta"))):
                     self.indexes[name] = Index(idir, name, self.device)
+            self._prewarm_all()
         except BaseException:
             self._release_dir_lock()
             raise
+
+    def _prewarm_all(self) -> None:
+        """Queue a background stack prewarm for every reopened field
+        (pilosa_tpu/models/holder.py:144-154): a restarted server's first
+        query finds its stacks on the card instead of paying the
+        assembly."""
+        for idx in self.indexes.values():
+            for f in idx.fields.values():
+                prewarm.enqueue(idx, f)
 
     def _acquire_dir_lock(self) -> None:
         """A second process opening the same directory fails fast."""
@@ -114,6 +128,7 @@ class Holder:
             idx = self.indexes.pop(name, None)
             if idx is None:
                 raise KeyError(f"index not found: {name}")
+            prewarm.cancel([idx])
             idx.close()
             if idx.path is not None:
                 shutil.rmtree(idx.path, ignore_errors=True)
@@ -144,7 +159,10 @@ class Holder:
                     FieldOptions.from_dict(fdesc.get("options", {})))
 
     def close(self) -> None:
+        """Drop this holder's queued prewarm jobs and wait out a running
+        one, then close every index and release the directory lock."""
         try:
+            prewarm.cancel(list(self.indexes.values()))
             for idx in self.indexes.values():
                 idx.close()
         finally:

@@ -15,6 +15,7 @@ import json
 import os
 import shutil
 import threading
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
@@ -94,8 +95,8 @@ class Index:
             fdir = os.path.join(self.path, name)
             if (os.path.isdir(fdir)
                     and os.path.exists(os.path.join(fdir, ".meta"))):
-                self.fields[name] = Field(fdir, self.name, name,
-                                          FieldOptions(), self.device)
+                self.fields[name] = self._adopt(Field(
+                    fdir, self.name, name, FieldOptions(), self.device))
 
     def field(self, name: str) -> Field | None:
         return self.fields.get(name)
@@ -135,8 +136,15 @@ class Index:
     def _create_field(self, name: str, options: FieldOptions) -> Field:
         validate_name(name)
         path = None if self.path is None else os.path.join(self.path, name)
-        f = Field(path, self.name, name, options, self.device)
+        f = self._adopt(Field(path, self.name, name, options, self.device))
         self.fields[name] = f
+        return f
+
+    def _adopt(self, f: Field) -> Field:
+        """Give the field a weak back-reference to its index: the prewarm
+        worker needs the index's shard set, which the fused executor keys
+        stacks by (pilosa_tpu/models/index.py:101-109)."""
+        f._index_ref = weakref.ref(self)
         return f
 
     def all_fields(self) -> list[Field]:

@@ -143,6 +143,15 @@ def _launcher(name: str):
         return fn
 
 
+def load_all() -> list[str]:
+    """Bind every source's launch function, building a missing library
+    with nvcc first: what a served process's first query would otherwise
+    pay.  Raises on a failed build, like a launch would."""
+    for name in _ENTRIES:
+        _launcher(name)
+    return list(_ENTRIES)
+
+
 def _check_pool(name: str, pool: torch.Tensor) -> None:
     if pool.dim() != 2 or pool.shape[1] != CONTAINER_WORDS:
         raise ValueError(f"{name} must be [rows, {CONTAINER_WORDS}], "

@@ -34,9 +34,10 @@ Two engines:
 
 Both tick one ``note_dispatch`` per launch, as the reference does.
 Nothing is lowered ahead of time in torch, so the reference's
-``_program``/``_mesh_program``/``prewarm`` have no counterpart; the
-``programs`` inventories of ``debug()`` list the bucket variants this
-process has executed.
+``_program``/``_mesh_program`` have no counterpart; the ``programs``
+inventories of ``debug()`` list the bucket variants this process has
+executed.  ``prewarm`` (``[ragged] prewarm``) launches K3 over the
+smallest size class's batch ladder on a served card.
 """
 
 from __future__ import annotations
@@ -160,7 +161,8 @@ def size_class(n_instrs: int, n_leaves: int) -> tuple[int, int]:
 
 _lock = threading.Lock()
 # the reference's names (pilosa_tpu/ops/tape.py:181-209), so /debug/ragged
-# reads the same in both packages; prewarm and the mesh never run here
+# reads the same in both packages; the mesh never runs here, and prewarm
+# only on a served card
 _counters = {
     "tape.executions": 0,
     "tape.queries": 0,
@@ -364,3 +366,34 @@ def vm_program(batch: Sequence[tuple[Tape, list]], zero_index: int,
         for li, ix in enumerate(idxs):
             gidx[li, qi, :len(ix)] = ix
     return prog, gidx
+
+
+def prewarm(device: torch.device, max_batch: int) -> int:
+    """The ``[ragged] prewarm`` counterpart (pilosa_tpu/ops/tape.py:
+    623-668): launch K3 once per batch of the pow2 ladder 2..pow2(
+    ``max_batch``) at the smallest size class, over a two-row pool on
+    ``device``, so that a served process's first coalesced Count pays
+    neither K3's module load nor its first launch.  The reference lowers
+    XLA programs here; K3 is compiled ahead (ops/nvcc_build.py), so what
+    is left to warm is the load, the plan's host code and the launch
+    path.  Returns the launches made, each counted in ``tape.prewarmed``
+    and in ``vm_counts.launches``."""
+    tp = compile_shape(("and", ("leaf", 0), ("leaf", 1)), 2)
+    tape_len, slots = size_class(1, 1)
+    words = cuda_kernels.CONTAINER_WORDS
+    pool = torch.zeros((2, words), dtype=torch.int32, device=device)
+    pool[0] = -1  # row 0 all ones, row 1 the zero row
+    n = 0
+    b = 2
+    while b <= max(2, _pow2(max_batch)):
+        idxs = [np.zeros(1, dtype=np.int32)] * 2
+        prog, gidx = vm_program([(tp, idxs)] * b, 1, tape_len, slots)
+        cts = cuda_kernels.vm_counts(pool, torch.from_numpy(prog),
+                                     torch.from_numpy(gidx))
+        if int(cts[0, 0]) != words * 32:
+            raise RuntimeError(f"K3 prewarm launch at batch {b} counted "
+                               f"{int(cts[0, 0])}, not {words * 32}")
+        bump("tape.prewarmed")
+        n += 1
+        b <<= 1
+    return n

@@ -36,8 +36,12 @@ window are dropped before any launch.  Their futures raise
 ``DeadlineExceededError``; their batchmates launch without them and get
 their own counts.
 
-Not part of the port yet: the flight recorder, stats, tracing, the
-residency OOM retry and the mesh.
+Each flush route launches inside ``residency.run_with_oom_retry``: on
+``torch.cuda.OutOfMemoryError`` every tracked device entry is evicted,
+the budget shrinks and the launch runs once more.
+
+Not part of the port yet: the flight recorder, stats, tracing and the
+mesh.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ import torch
 from pilosa_tpu_torch.ops import containers as _containers
 from pilosa_tpu_torch.ops import expr
 from pilosa_tpu_torch.ops import tape as _tape
+from pilosa_tpu_torch.runtime import residency as _residency
 from pilosa_tpu_torch.serve.deadline import DeadlineExceededError
 
 
@@ -268,28 +273,36 @@ class Coalescer:
                 _tape.bump("coalescer.shape_misses", misses)
             if len(shape_groups) > 1:
                 _tape.bump("coalescer.shape_flushes")
+            # every launch below runs inside the out-of-memory
+            # evict-and-retry (pilosa_tpu/parallel/coalescer.py:511-580)
             if live[0].vm is not None:
-                results = self._flush_vm(live)
+                results = _residency.run_with_oom_retry(
+                    lambda: self._flush_vm(live))
             elif n == 1:
                 # lone passthrough: the single-query program
-                results = [expr.evaluate(live[0].shape, live[0].leaves,
-                                         counts=True)]
+                results = _residency.run_with_oom_retry(
+                    lambda: [expr.evaluate(live[0].shape, live[0].leaves,
+                                           counts=True)])
             elif len(shape_groups) == 1:
                 # same shape: the fused program over [B, S, W] stacks.
                 # No pow2 batch padding -- it exists in the reference to
                 # bound XLA recompiles, and eager torch compiles nothing
-                stacked = tuple(
-                    torch.stack([it.leaves[j] for it in live])
-                    for j in range(len(live[0].leaves)))
-                counts = expr.evaluate(live[0].shape, stacked, counts=True)
-                results = list(counts.to("cpu"))
+                def same_shape():
+                    stacked = tuple(
+                        torch.stack([it.leaves[j] for it in live])
+                        for j in range(len(live[0].leaves)))
+                    return list(expr.evaluate(live[0].shape, stacked,
+                                              counts=True).to("cpu"))
+
+                results = _residency.run_with_oom_retry(same_shape)
             else:
                 tb, lb = _tape.size_class(
                     max(len(it.tape.instrs) for it in live),
                     max(it.tape.n_leaves for it in live))
-                results = _tape.execute(
-                    [(it.tape, it.leaves) for it in live],
-                    counts=True, tape_len=tb, slots=lb)
+                results = _residency.run_with_oom_retry(
+                    lambda: _tape.execute(
+                        [(it.tape, it.leaves) for it in live],
+                        counts=True, tape_len=tb, slots=lb))
             results = [_host_int64(r) for r in results]
         except BaseException as e:  # noqa: BLE001 -- every waiter fails
             for it in live:

@@ -75,6 +75,14 @@ deadline (``_rc_wait``).  Left out with the flight recorder:
 ``_rc_mark_hit`` and the ``cacheKey`` stamp; with the cluster: the
 ``count_shards`` probe and ``_rc_fill_ok`` (no partial results).
 
+Residency (runtime/residency.py; executor.py:112-116, 344, 540-561,
+1433-1448, 1685-1708, 1987-2003): ``ExecOptions.tiers=False``
+(``?notiers=1``) installs the ``no_tiers`` scope for the execution, and
+the fused Row, the un-coalesced fused Count and the fused TopN scan each
+stage and launch inside ``run_with_oom_retry``, which on
+``torch.cuda.OutOfMemoryError`` evicts every tracked device entry, shrinks
+the budget and retries once.
+
 Deadlines and tenants (serve/; executor.py:117-140, 345-369, 538-600):
 ``ExecOptions.deadline`` (the request's ``X-Pilosa-Deadline``) is checked
 before translation, before each call's map (``map``), before each shard
@@ -83,7 +91,8 @@ expired query never reaches a kernel launch; the coalescer drops an
 entry that expires in its window.  ``ExecOptions.tenant`` is installed
 as the thread's tenant scope for the execution, which the result cache
 charges with [tenants] on.  The shards of one node map on the calling
-thread, where both scopes already hold; the reference's hand-off of the
+thread, where both scopes (and ``no_tiers``) already hold; the
+reference's hand-off of the
 deadline to its remote-query threads (executor.py:515-525) waits for the
 cluster.
 
@@ -148,6 +157,7 @@ from pilosa_tpu_torch.ops import containers, expr
 from pilosa_tpu_torch.parallel.results import (FieldRow, GroupCount, Pair,
                                                ValCount, sort_pairs)
 from pilosa_tpu_torch.pql import Call, Query, parse
+from pilosa_tpu_torch.runtime import residency as _residency
 from pilosa_tpu_torch.runtime import resultcache
 from pilosa_tpu_torch.serve import deadline as _deadline
 from pilosa_tpu_torch.serve import tenant as _tenantmod
@@ -193,6 +203,9 @@ class ExecOptions:
     # the request's tenant id (X-Pilosa-Tenant / ?tenant=): the thread's
     # tenant scope during the execution; inert with [tenants] off
     tenant: str | None = None
+    # ?notiers=1: bypass tiered residency (host-tier lookups miss,
+    # evictions drop) -- the exact pre-tier behavior, same answers
+    tiers: bool = True
 
 
 class ExecutionError(ValueError):
@@ -244,7 +257,8 @@ class Executor:
         if idx is None:
             raise ExecutionError(f"index not found: {index_name}")
         t0 = _time.perf_counter()
-        with _tenantmod.scope(opt.tenant):
+        with _tenantmod.scope(opt.tenant), \
+                _residency.no_tiers(not opt.tiers):
             _deadline.check(opt.deadline, "translate")
             # keys translate once, before any call runs
             # (executor.py:371-375)
@@ -691,13 +705,18 @@ class Executor:
             hit, val = rc.get(key, gens, self._rc_wait(opt))
             if hit:
                 return [(s, w.copy()) for s, w in val]
-        plan = containers.plan_fused(idx, call, g, opt, counts=False)
-        if plan is not None:
-            partials = plan.row_words()
-        else:
+
+        def dispatch():
+            # the fused Row launch (compressed or dense), staged inside
+            # the out-of-memory evict-and-retry (executor.py:1433-1448)
+            plan = containers.plan_fused(idx, call, g, opt, counts=False)
+            if plan is not None:
+                return plan.row_words()
             stack = bm.to_numpy(self._fused_eval(idx, call, g, opt.delta))
-            partials = [(s, stack[i].copy()) for i, s in enumerate(g)
-                        if stack[i].any()]
+            return [(s, stack[i].copy()) for i, s in enumerate(g)
+                    if stack[i].any()]
+
+        partials = _residency.run_with_oom_retry(dispatch)
         if probe is not None:
             value = [(s, w.copy()) for s, w in partials]
             rc.put(key, gens, value,
@@ -844,15 +863,21 @@ class Executor:
                     self, idx, child, g, use_delta=opt.delta,
                     use_vm=opt.vm and opt.containers, cache_fill=probe,
                     deadline=opt.deadline, tenant=opt.tenant)
-            plan = containers.plan_fused(idx, child, g, opt)
-            if plan is not None:
-                total = sum(plan.counts())
-            else:
+
+            def compute_counts():
+                # staged inside the out-of-memory evict-and-retry, so the
+                # retry restages its operands after the eviction
+                # (executor.py:1685-1708)
+                plan = containers.plan_fused(idx, child, g, opt)
+                if plan is not None:
+                    return sum(plan.counts())
                 shape, leaves = self._fused_expr(idx, child, g, opt.delta)
                 counts = expr.evaluate(shape, leaves, counts=True)
                 # per-shard int32 counts summed as Python ints: one int32
                 # reduce over the stack could wrap past 2^31 set bits
-                total = int(counts.to("cpu").to(torch.int64).sum())
+                return int(counts.to("cpu").to(torch.int64).sum())
+
+            total = _residency.run_with_oom_retry(compute_counts)
             if probe is not None:
                 rc.put(key, gens, total, 32)
             return total
@@ -1031,15 +1056,23 @@ class Executor:
                         totals[r] = totals.get(r, 0) + c
                 return totals
 
-        gens, row_ids, shard_pos, pos_dev, mat_dev = \
-            f.device_matrix_stack(shards)
-        if mat_dev is None:
+        def scan():
+            # the matrix stack is fetched INSIDE the out-of-memory
+            # evict-and-retry: on an OOM the eviction drops its cache
+            # entry, so the retry restages it (executor.py:1987-2003)
+            stack = f.device_matrix_stack(shards)
+            mat_dev, pos_dev = stack[4], stack[3]
+            if mat_dev is None:
+                return stack, None
+            if filter_call is not None:
+                filt = self._fused_eval(idx, filter_call, shards, use_delta)
+                return stack, bm.row_counts_gathered(mat_dev, filt, pos_dev)
+            return stack, bm.row_counts(mat_dev)
+
+        (gens, row_ids, shard_pos, _pos_dev, _mat_dev), counts = \
+            _residency.run_with_oom_retry(scan)
+        if counts is None:
             return totals
-        if filter_call is not None:
-            filt = self._fused_eval(idx, filter_call, shards, use_delta)
-            counts = bm.row_counts_gathered(mat_dev, filt, pos_dev)
-        else:
-            counts = bm.row_counts(mat_dev)
         # int64 before the test: a count is never compared as a word
         counts = counts.to("cpu").numpy().astype(np.int64)[:len(row_ids)]
         if filter_call is not None:

@@ -13,7 +13,9 @@ Copy of pilosa_tpu/serve/tenant.py.
   slots inside each admission class and its deficit-round-robin weight
   (serve/admission.py); ``queue`` bounds its wait queue in each class;
   ``cache_share`` is its soft fraction of the result cache's byte budget
-  (runtime/resultcache.py).
+  (runtime/resultcache.py), and ``residency_share`` its fraction of the
+  card's byte budget and of the host tier's (runtime/residency.py: an
+  over-quota tenant demotes its own coldest stacks).
 - **Off by default**: with ``enabled`` false :func:`policy` returns None
   and every enforcement site takes its path without tenants.
 
@@ -21,9 +23,7 @@ The configuration is process-wide: ``configure`` applies explicit values
 in place, the first server to ``retain()`` captures the config in force
 and the last ``release()`` restores it.
 
-Left out, with the port's lack of the layers they hook into: the
-enforcement of ``residency_share`` (no tiered residency manager; the
-field stays, so that quotas parse and echo as in the reference) and
+Left out, with the port's lack of the layer it hooks into:
 ``publish_gauges`` (no stats registry).
 """
 
@@ -56,8 +56,7 @@ class TenantQuota:
     (past it an arrival sheds 429 ``tenant-queue-full``),
     ``cache_share`` a soft fraction of the result-cache budget (past it
     eviction prefers the tenant's own entries), ``residency_share`` its
-    fraction of the card's budget in the reference's residency manager
-    (kept, not enforced here)."""
+    fraction of the residency manager's card and host-tier budgets."""
 
     share: int = 4
     queue: int = 16

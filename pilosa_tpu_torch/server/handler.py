@@ -568,6 +568,10 @@ class Handler:
                 # ?nocache=1: a real execution, no result-cache probe or
                 # fill (pilosa_tpu/server/handler.py:776-778)
                 cache=params.get("nocache") not in ("1", "true"),
+                # ?notiers=1: bypass tiered residency (host-tier lookups
+                # miss, evictions drop; pilosa_tpu/server/handler.py:
+                # 792-796)
+                tiers=params.get("notiers") not in ("1", "true"),
                 # X-Pilosa-Tenant / ?tenant=, cleaned once by the dispatch
                 tenant=getattr(req, "_pilosa_tenant", None))
         except Exception as e:  # noqa: BLE001 -- the client's wire form
@@ -697,21 +701,22 @@ class Handler:
     def handle_debug_tenants(self, req, params, path, body):
         """Per-tenant isolation state with the reference's keys
         (pilosa_tpu/server/handler.py:1773-1813): the [tenants] policy,
-        and per tenant the admission totals over the classes and the
-        result cache's accounting.  ``residency`` is None: the port has
-        no residency manager."""
-        from pilosa_tpu_torch.runtime import resultcache
+        and per tenant the admission totals over the classes, the result
+        cache's accounting and the residency manager's (HBM and host-tier
+        bytes, the HBM quota, the demotion pressure)."""
+        from pilosa_tpu_torch.runtime import residency, resultcache
 
         cfg = _tenant.config()
         admission = (self.admission.tenants_debug()
                      if self.admission is not None else {})
         cache = resultcache.cache().tenant_stats()
+        res = residency.manager().tenant_stats()
         tenants: dict[str, dict] = {}
-        for name in sorted(set(admission) | set(cache)):
+        for name in sorted(set(admission) | set(cache) | set(res)):
             tenants[name] = {
                 "admission": admission.get(name),
                 "cache": cache.get(name),
-                "residency": None,
+                "residency": res.get(name),
             }
         self._json(req, {
             "enabled": cfg.enabled,

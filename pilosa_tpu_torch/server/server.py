@@ -51,6 +51,27 @@ gives it back on close; the last closer restores the config the first
 one found, and a reopened server applies its knobs again.
 ``close`` is idempotent.
 
+Residency (``[residency]``, on by default as in the reference;
+server.py:99-106, 365-381, 429-436, 500-507, 754-756): the
+``residency_*`` knobs configure the process-wide tiered residency
+manager (runtime/residency.py) in place; the server takes a reference at
+construction (the first one snapshots the config in force) and gives it
+back on close, and the last closer restores the snapshot and stops the
+promotion workers.  ``open`` gates the promotion pool with the server's
+admission controller (``internal``) and starts a ``Prefetcher``, which
+``close`` stops.  The HBM budget itself is the manager's
+(``PILOSA_TPU_DEVICE_BUDGET_BYTES``, else 60 % of the card's memory).
+
+``ragged_prewarm`` (``[ragged] prewarm``, default true; server.py:
+582-624): on a CUDA node whose coalescer runs the VM, ``open`` starts a
+background thread that loads every CUDA kernel (building a missing one
+with nvcc) and launches K3 once per batch of the smallest size class's
+pow2 ladder (``ops/tape.prewarm``).  It is best-effort: a failure is
+logged as the reference logs it and counted in
+``ragged_prewarm_stats``, and the first query then pays the load; no
+kernel is ever replaced by its plain version.  ``close`` waits for the
+thread.
+
 ``max_writes_per_request`` (default 0, no limit; server.py:46, 406)
 caps the write calls of one query request.  ``long_query_time`` (seconds,
 0 off) and ``logger`` (default ``logger.NOP``) give the executor the
@@ -60,6 +81,9 @@ slow-query log of ``[cluster] long-query-time`` (server.py:134-139,
 
 from __future__ import annotations
 
+import threading
+import time
+
 import torch
 
 from pilosa_tpu_torch import device as devmod
@@ -68,10 +92,11 @@ from pilosa_tpu_torch import logger as _logger
 from pilosa_tpu_torch.api import API
 from pilosa_tpu_torch.ingest import compactor
 from pilosa_tpu_torch.models.holder import Holder
-from pilosa_tpu_torch.ops import containers, tape
+from pilosa_tpu_torch.ops import containers, cuda_kernels, tape
 from pilosa_tpu_torch.parallel.coalescer import Coalescer
 from pilosa_tpu_torch.parallel.executor import Executor
-from pilosa_tpu_torch.runtime import resultcache
+from pilosa_tpu_torch.runtime import residency, resultcache
+from pilosa_tpu_torch.runtime.prefetch import Prefetcher
 from pilosa_tpu_torch.serve import tenant as _tenantcfg
 from pilosa_tpu_torch.serve.admission import AdmissionController
 from pilosa_tpu_torch.server.handler import Handler
@@ -84,6 +109,7 @@ class Server:
                  coalescer_max_batch: int = 32, ragged_enabled: bool = True,
                  ragged_max_tape: int = tape.DEFAULT_MAX_TAPE,
                  ragged_max_leaves: int = tape.DEFAULT_MAX_LEAVES,
+                 ragged_prewarm: bool = True,
                  vm_enabled: bool = True,
                  vm_min_domain: int = containers.VM_MIN_DOMAIN,
                  vm_max_prefetch: int = containers.VM_MAX_PREFETCH,
@@ -114,6 +140,14 @@ class Server:
                  tenants_default_cache_share: float | None = None,
                  tenants_default_residency_share: float | None = None,
                  tenants_quotas: dict | None = None,
+                 residency_host_budget_bytes: int | None = None,
+                 residency_disk_path: str | None = None,
+                 residency_disk_budget_bytes: int | None = None,
+                 residency_promote_workers: int | None = None,
+                 residency_promote_queue: int | None = None,
+                 residency_promote_wait_ms: float | None = None,
+                 residency_prefetch: bool | None = None,
+                 residency_prefetch_interval: float | None = None,
                  max_writes_per_request: int = 0,
                  long_query_time: float = 0.0,
                  logger=None):
@@ -162,6 +196,24 @@ class Server:
             self._tenants_retained = False
             _tenantcfg.release()
             raise
+        self._residency_knobs = dict(
+            host_budget_bytes=residency_host_budget_bytes,
+            disk_path=residency_disk_path,
+            disk_budget_bytes=residency_disk_budget_bytes,
+            promote_workers=residency_promote_workers,
+            promote_queue=residency_promote_queue,
+            promote_wait_ms=residency_promote_wait_ms,
+            prefetch=residency_prefetch,
+            prefetch_interval=residency_prefetch_interval)
+        residency.retain()
+        self._residency_retained = True
+        residency.configure(**self._residency_knobs)
+        self.prefetcher = Prefetcher()
+        self.ragged_prewarm = bool(ragged_prewarm)
+        self._ragged_thread = None
+        #: the last open's [ragged] prewarm: K3 launches made, failures,
+        #: seconds, and whether it has finished
+        self.ragged_prewarm_stats: dict = {}
         self._cache_knobs = {"budget_bytes": cache_budget_bytes,
                              "max_entry_bytes": cache_max_entry_bytes,
                              "ttl_s": cache_ttl, "enabled": cache_enabled}
@@ -205,6 +257,10 @@ class Server:
             _tenantcfg.retain()
             self._tenants_retained = True
             _tenantcfg.configure(**self._tenants_knobs)
+        if not self._residency_retained:
+            residency.retain()
+            self._residency_retained = True
+            residency.configure(**self._residency_knobs)
         self._closed = False
         containers.retain()
         self._containers_retained = True
@@ -226,11 +282,39 @@ class Server:
                 self.holder = None
             self._release_containers()
             raise
-        # the compactor's scans run under the internal class (the
-        # compactor is process-wide: the last server opened gates it)
+        # the compactor's scans and the residency promotions run under
+        # the internal class (both are process-wide: the last server
+        # opened gates them)
         compactor.compactor().admission = self.admission
+        residency.promoter().admission = self.admission
+        self.prefetcher.start()
         self.handler.serve_background()
+        co = self.coalescer
+        self.ragged_prewarm_stats = {"launches": 0, "failures": 0,
+                                     "seconds": 0.0, "done": False}
+        if (self.ragged_prewarm and self.device.type == "cuda"
+                and co.enabled and co.ragged and co.vm):
+            self._ragged_thread = threading.Thread(
+                target=self._prewarm_ragged, daemon=True,
+                name="ragged-prewarm")
+            self._ragged_thread.start()
         return self
+
+    def _prewarm_ragged(self) -> None:
+        st = self.ragged_prewarm_stats
+        t0 = time.perf_counter()
+        try:
+            cuda_kernels.load_all()
+            st["launches"] = tape.prewarm(self.device,
+                                          self.coalescer.max_batch)
+            torch.cuda.synchronize(self.device)
+        except Exception as e:  # noqa: BLE001 -- never breaks serving;
+            # the first coalesced query pays the load instead
+            st["failures"] += 1
+            self.logger.printf("ragged prewarm skipped: %r", e)
+        finally:
+            st["seconds"] = time.perf_counter() - t0
+            st["done"] = True
 
     def close(self) -> None:
         if self._closed:
@@ -238,6 +322,10 @@ class Server:
             # compactor reference under a still-open sibling
             return
         self._closed = True
+        self.prefetcher.stop()
+        if self._ragged_thread is not None:
+            self._ragged_thread.join(timeout=300)
+            self._ragged_thread = None
         if self.handler is not None:
             self.handler.close()
             self.handler = None
@@ -247,7 +335,13 @@ class Server:
         c = compactor.compactor()
         if c.admission is self.admission:
             c.admission = None
+        p = residency.promoter()
+        if p.admission is self.admission:
+            p.admission = None
         self._release_containers()
+        if self._residency_retained:
+            self._residency_retained = False
+            residency.release()
         if self._tenants_retained:
             self._tenants_retained = False
             _tenantcfg.release()

@@ -325,6 +325,11 @@ def test_unapplied_names_existing_keys_with_their_queue_items():
         assert item in ("5a", "7", "8", "10", "11")
         obj = cfg if section is None else getattr(cfg, section)
         assert name == "*" or hasattr(obj, name), (section, name)
+    # [residency] and [ragged] prewarm are applied since item 8's first
+    # half; its [faultinject] is not yet
+    assert not [k for k in UNAPPLIED
+                if k[0] == "residency" or k == ("ragged", "prewarm")]
+    assert UNAPPLIED[("faultinject", "*")] == "8"
     # nothing at its default is reported
     assert tcmd.unapplied(TConfig()) == []
 
@@ -340,12 +345,15 @@ def test_unapplied_reports_each_changed_key_the_port_does_not_apply(
     assert got["[cluster] replicas"] == (3, "10")
     assert got["[mesh] enabled"] == ("false", "11")
     assert got["[observe] long-query-time"] == (0.5, "7")
-    assert got["[residency] host-budget-bytes"] == (0, "8")
-    assert got["[ragged] prewarm"] == (False, "8")
+    assert got["[faultinject] armed"] == (
+        "client.request.send=error(transport)*3", "8")
     assert got["[tls] skip-verify"] == (True, "10")
     # applied keys are never reported
     for key in ("[cluster] long-query-time", "max-writes-per-request",
                 "[cache] enabled", "[admission] query-cap",
                 "[containers] threshold", "[tenants] default-share",
-                "[tenants] default-residency-share", "verbose", "bind"):
+                "[tenants] default-residency-share", "verbose", "bind",
+                "[residency] host-budget-bytes", "[residency] prefetch",
+                "[ragged] prewarm"):
         assert key not in got
+    assert not any(k.startswith("[residency]") for k in got)

@@ -16,9 +16,9 @@ budgets against the JAX package's, on the CPU, mesh off.
 - a JAX ``Server`` and a port ``Server`` with ``tenants_enabled`` side
   by side (tests/torch_wire_pair.py): ``X-Pilosa-Tenant`` and
   ``?tenant=``, a 429 ``tenant-queue-full`` with the tenant on its body,
-  ``/debug/admission`` with its tenants, ``/debug/tenants`` (the port
-  has no residency manager: its ``residency`` is None, the field
-  excepted) and the restore of the [tenants] config on close.
+  ``/debug/admission`` with its tenants, ``/debug/tenants`` with its
+  residency half (each package's background prewarm drained first) and
+  the restore of the [tenants] config on close.
 
 Every fixture restores exactly the process-wide settings it touches:
 both packages' [tenants] configs, field by field."""
@@ -32,10 +32,12 @@ import numpy as np
 import pytest
 
 from pilosa_tpu import stats as jstats
+from pilosa_tpu.runtime import prewarm as jprewarm
 from pilosa_tpu.runtime import resultcache as jrc
 from pilosa_tpu.serve import admission as jadm
 from pilosa_tpu.serve import deadline as jdl
 from pilosa_tpu.serve import tenant as jten
+from pilosa_tpu_torch.runtime import prewarm as tprewarm
 from pilosa_tpu_torch.runtime import resultcache as trc
 from pilosa_tpu_torch.serve import admission as tadm
 from pilosa_tpu_torch.serve import deadline as tdl
@@ -360,14 +362,15 @@ def cache_bases() -> tuple:
 
 
 def _tenant_doc(server, base: dict) -> dict:
-    """``/debug/tenants`` without the residency half, which the port does
-    not have, its cache counters taken from ``base`` on, and the tenants
-    this test did not touch left out."""
+    """``/debug/tenants`` with its cache counters taken from ``base`` on,
+    and the tenants this test did not touch left out.  Both packages'
+    background prewarm is drained first, so that the residency half holds
+    every stack it will build."""
+    assert tprewarm.drain(timeout=30) and jprewarm.drain(timeout=30)
     st, _ra, body = script.req(server.uri, "/debug/tenants")
     assert st == 200
     doc = json.loads(body)
     for name, d in list(doc["tenants"].items()):
-        d.pop("residency")
         c, b = d["cache"], base.get(name)
         if c is not None and b is not None:
             for k in _COUNTERS:
@@ -375,7 +378,8 @@ def _tenant_doc(server, base: dict) -> dict:
         if c is not None and not any(
                 c[k] for k in ("bytes", "entries") + _COUNTERS):
             d["cache"] = None
-        if d["admission"] is None and d["cache"] is None:
+        if (d["admission"] is None and d["cache"] is None
+                and d["residency"] is None):
             del doc["tenants"][name]
     return script.scrub(doc)
 

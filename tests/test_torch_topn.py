@@ -331,17 +331,27 @@ def test_matrix_stack_matches_the_reference(servers):
     assert tf.device_matrix_stack(shards)[4] is tmat
 
 
+def _drop_matrix_stacks(f) -> None:
+    """Empty the field's matrix-stack cache, host-tier twins included
+    (a bare ``clear()`` of the dict would leave them to promote back)."""
+    from pilosa_tpu_torch.runtime import residency
+
+    for k in list(f._matrix_stack_cache):
+        residency.manager().forget(f._matrix_stack_cache, k)
+    f._matrix_stack_cache.clear()
+
+
 def test_matrix_stack_cache_cap_refuses_only_larger_stacks(servers,
                                                            monkeypatch):
     _js, ts, _data = servers
     f = ts.holder.index("i").field("u")
     shards = (0, 1, 2)
     nbytes = f.device_matrix_stack(shards)[4].numel() * 4
-    f._matrix_stack_cache.clear()
+    _drop_matrix_stacks(f)
     monkeypatch.setattr(type(f), "MATRIX_STACK_CACHE_BYTES", nbytes)
     first = f.device_matrix_stack(shards)[4]
     assert f.device_matrix_stack(shards)[4] is first
-    f._matrix_stack_cache.clear()
+    _drop_matrix_stacks(f)
     monkeypatch.setattr(type(f), "MATRIX_STACK_CACHE_BYTES", nbytes - 1)
     first = f.device_matrix_stack(shards)[4]
     assert f.device_matrix_stack(shards)[4] is not first

@@ -3,11 +3,14 @@ tests of string keys, attributes and protobuf bodies
 (tests/test_torch_keys.py, tests/test_torch_attrs.py,
 tests/test_torch_proto.py).
 
-Both run at their defaults (delta planes, result cache and coalescer on),
-mesh off, on the CPU at the test width, each compactor at a 3600 s
-interval.  ``configuration()`` snapshots exactly the process-wide fields
-the servers touch and restores them; it calls no ``reset()`` of a
-reference module.  ``both`` sends one request to each server and
+Both run at their defaults (delta planes, result cache, coalescer and
+residency tiers on), mesh off, on the CPU at the test width, each
+compactor at a 3600 s interval.  ``configuration()`` snapshots exactly
+the process-wide fields the servers touch and restores them; it calls no
+``reset()`` of a reference module.  It gives the test a fresh port
+residency manager (the reference's conftest resets only the
+reference's), puts the old one back after, and drains both packages'
+background prewarm.  ``both`` sends one request to each server and
 requires the same status, content type and bytes."""
 
 from __future__ import annotations
@@ -22,12 +25,15 @@ from pilosa_tpu import ingest as jingest
 from pilosa_tpu.ingest import compactor as jcompactor
 from pilosa_tpu.ops import containers as jct
 from pilosa_tpu.parallel import meshexec
+from pilosa_tpu.runtime import prewarm as jprewarm
 from pilosa_tpu.runtime import resultcache as jrc
 from pilosa_tpu.serve import tenant as jtenant
 from pilosa_tpu.server.server import Server as JServer
 from pilosa_tpu_torch import ingest as tingest
 from pilosa_tpu_torch.ingest import compactor as tcompactor
 from pilosa_tpu_torch.ops import containers as tct
+from pilosa_tpu_torch.runtime import prewarm as tprewarm
+from pilosa_tpu_torch.runtime import residency as tres
 from pilosa_tpu_torch.runtime import resultcache as trc
 from pilosa_tpu_torch.serve import tenant as ttenant
 from pilosa_tpu_torch.server.server import Server as TServer
@@ -36,6 +42,38 @@ PB = "application/x-protobuf"
 _INGEST = ("delta_enabled", "delta_budget_bytes", "compact_threshold_bits",
            "compact_interval")
 _CACHE = ("enabled", "budget", "max_entry_bytes", "ttl_s")
+#: the environment both packages' residency and prewarm read
+_ENV = ("PILOSA_TPU_PREWARM", "PILOSA_TPU_DEVICE_BUDGET_BYTES")
+
+
+@contextlib.contextmanager
+def residency_state(budget_bytes: int | None = None):
+    """A fresh port residency manager (``budget_bytes``, or the default)
+    for the block; the port's [residency] config, its baseline and
+    reference count, the manager in force and the environment both
+    packages read are put back after, and both packages' prewarm queues
+    are drained first.  The promotion workers the block started stop."""
+    env = {k: os.environ.get(k) for k in _ENV}
+    cfg = {k: getattr(tres.config(), k)
+           for k in tres.TierRuntimeConfig.__slots__}
+    base, refs, was = tres._baseline, tres._refs, tres._global
+    tres._global = tres.ResidencyManager(budget_bytes)
+    try:
+        yield tres._global
+    finally:
+        assert tprewarm.drain(timeout=30), "port prewarm did not drain"
+        assert jprewarm.drain(timeout=30), "reference prewarm did not drain"
+        tres.promoter().stop()
+        tres._global.close()
+        tres._global = was
+        for k, v in cfg.items():
+            setattr(tres.config(), k, v)
+        tres._baseline, tres._refs = base, refs
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def tenant_configs() -> list:
@@ -55,8 +93,9 @@ def restore_tenant_configs(was: list) -> None:
 def configuration():
     """Mesh off; restores both [ingest] configs and baselines, both
     [containers] configs, both result caches' knobs, both [tenants]
-    configs and the mesh config, and checks that both compactors' retain
-    counts are back."""
+    configs, the port's residency state (``residency_state``) and the
+    mesh config, and checks that both compactors' retain counts are
+    back."""
     mesh_was = (meshexec._cfg.enabled, meshexec._cfg.axis_size)
     ing = [{k: getattr(m.config(), k) for k in _INGEST}
            for m in (jingest, tingest)]
@@ -68,7 +107,8 @@ def configuration():
     refs = (jcompactor.refs(), tcompactor.refs())
     meshexec.configure(enabled=False)
     try:
-        yield
+        with residency_state():
+            yield
     finally:
         assert (jcompactor.refs(), tcompactor.refs()) == refs
         restore_tenant_configs(tenants)
